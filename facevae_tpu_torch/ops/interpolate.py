@@ -1,0 +1,46 @@
+"""Resize / pooling primitives with torch semantics (port of
+facevae_tpu/ops/interpolate.py).
+
+The JAX package builds these from matmuls and reshapes to match torch's
+F.interpolate / pooling exactly; here they ARE torch's ops.  Layouts are
+PyTorch's own, [N,C,H,W] / [N,C,D,H,W] — the blocks that use them run NC(D)HW.
+"""
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+
+
+def interpolate_bilinear_2d(x: torch.Tensor, out_hw) -> torch.Tensor:
+    """Bilinear resize [N,C,H,W] -> [N,C,Ho,Wo], align_corners=False, no
+    antialiasing (the reference's F.interpolate)."""
+    if tuple(out_hw) == tuple(x.shape[-2:]):
+        return x
+    return F.interpolate(x, size=tuple(out_hw), mode="bilinear",
+                         align_corners=False, antialias=False)
+
+
+def upsample_nearest_2d(x: torch.Tensor, scale: int = 2) -> torch.Tensor:
+    """[N,C,H,W] nearest upsample (pixel duplication)."""
+    return F.interpolate(x, scale_factor=scale, mode="nearest")
+
+
+def upsample_nearest_3d(x: torch.Tensor, scale=(1, 2, 2)) -> torch.Tensor:
+    """[N,C,D,H,W] nearest upsample; the reference upsamples only H,W."""
+    return F.interpolate(x, scale_factor=tuple(scale), mode="nearest")
+
+
+def avg_pool_2d(x: torch.Tensor, window: int = 2) -> torch.Tensor:
+    """[N,C,H,W] non-overlapping average pool."""
+    return F.avg_pool2d(x, window)
+
+
+def avg_pool_3d(x: torch.Tensor, window=(1, 2, 2)) -> torch.Tensor:
+    """[N,C,D,H,W]; the reference pools only H,W."""
+    return F.avg_pool3d(x, tuple(window))
+
+
+def max_pool_2d(x: torch.Tensor, window: int = 3, stride: int = 2,
+                padding: int = 1) -> torch.Tensor:
+    """[N,C,H,W] max pool; the padding acts as -inf."""
+    return F.max_pool2d(x, window, stride, padding)

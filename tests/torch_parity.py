@@ -1,0 +1,45 @@
+"""Shared helpers of the PyTorch-port parity tests (tests/test_torch_*.py).
+
+The JAX side (seeded G-net variables, the JAX InferencePipeline over them)
+lives in tools/make_torch_golden.py, which also writes the committed golden;
+it is loaded here by path.
+"""
+from __future__ import annotations
+
+import importlib.util
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+
+ROOT = Path(__file__).resolve().parents[1]
+_spec = importlib.util.spec_from_file_location(
+    "make_torch_golden", ROOT / "tools" / "make_torch_golden.py")
+golden = importlib.util.module_from_spec(_spec)
+_spec.loader.exec_module(golden)
+
+
+def to_np(a):
+    if isinstance(a, torch.Tensor):
+        return a.detach().cpu().numpy()
+    return np.asarray(a)
+
+
+def assert_close(actual, ref, rel, what=""):
+    """max|actual - ref| <= rel * max|ref| (a scale-aware fp32 tolerance)."""
+    actual, ref = to_np(actual).astype(np.float64), to_np(ref).astype(np.float64)
+    assert actual.shape == ref.shape, (what, actual.shape, ref.shape)
+    err = float(np.abs(actual - ref).max())
+    scale = float(np.abs(ref).max())
+    assert err <= rel * scale, f"{what}: max|err| {err:.3e} > {rel:g} * max|ref| {scale:.3e}"
+    return err / scale if scale else 0.0
+
+
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """The suite runs with several xdist workers: keep torch to one thread."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
