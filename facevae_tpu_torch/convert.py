@@ -1,6 +1,6 @@
-"""Weight bridge: JAX (flax) variables of the G nets -> the port's state_dicts.
+"""Weight bridge: JAX (flax) variables -> the port's state_dicts.
 
-Input is one net's variables as nested dicts of numpy arrays,
+load_jax_variables takes one net's variables as nested dicts of numpy arrays,
 {"params": ..., "batch_stats": ..., "spectral": ...}.  The port's modules
 carry the flax names (nn/blocks.py), so the mapping is keyed on names, never
 on dict order (jit round trips alphabetize keys):
@@ -14,6 +14,11 @@ on dict order (jit round trips alphabetize keys):
 
 It is strict: a leaf with no counterpart, a parameter with no leaf, or a shape
 mismatch raises ValueError.
+
+load_jax_train_state carries a whole JAX train state across (g_params,
+d_params, c_params, teachers, batch_stats, spectral), net by net through
+load_jax_variables.  The teachers (Hopenet, the perceptual loss's VGG stacks)
+come this way: the port never draws teacher weights of its own for parity.
 """
 from __future__ import annotations
 
@@ -111,3 +116,34 @@ def load_jax_variables(model: torch.nn.Module, variables: Mapping[str, Any]):
     model.load_state_dict({k: torch.from_numpy(v).to(own[k].dtype)
                            for k, v in new.items()}, strict=True)
     return model
+
+
+TRAIN_STATE_KEYS = ("g_params", "d_params", "c_params", "teachers", "batch_stats", "spectral")
+
+
+def load_jax_train_state(nets: Mapping[str, torch.nn.Module], tree: Mapping[str, Any]):
+    """Copy a JAX TrainState's variables (``tree``: a mapping with
+    TRAIN_STATE_KEYS, nested numpy) into the port's ``nets`` (keyed by the
+    JAX names), strictly: every net of ``nets`` must be filled, and every
+    tree of ``tree`` must have a net."""
+    missing = [k for k in TRAIN_STATE_KEYS if k not in tree]
+    if missing:
+        raise ValueError(f"train state lacks {missing}")
+    params = {**tree["g_params"], **tree["d_params"], **tree["c_params"]}
+    teachers = dict(tree["teachers"])
+    stray = (set(tree["batch_stats"]) | set(tree["spectral"])) - set(params)
+    unknown = (set(params) | set(teachers)) - set(nets)
+    unfilled = set(nets) - set(params) - set(teachers)
+    if stray or unknown or unfilled:
+        raise ValueError(f"train state and nets differ: state trees with no params {sorted(stray)}, "
+                         f"nets the port lacks {sorted(unknown)}, "
+                         f"port nets with no state {sorted(unfilled)}")
+    for name, p in params.items():
+        variables = {"params": p}
+        for col in ("batch_stats", "spectral"):
+            if name in tree[col]:
+                variables[col] = tree[col][name]
+        load_jax_variables(nets[name], variables)
+    for name, variables in teachers.items():
+        load_jax_variables(nets[name], variables)
+    return nets

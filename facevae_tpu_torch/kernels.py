@@ -1,10 +1,12 @@
 """Build and load the port's CUDA kernels.
 
-Each kernel is one ``csrc/<name>.cu`` file with a plain C interface.  At
-first use it is compiled with nvcc for sm_90a into a shared library under
+Each library is one ``csrc/<name>.cu`` file with a plain C interface
+(warp_fwd: the warp forward; warp_bwd: its dgrid and dx kernels).  At first
+use it is compiled with nvcc for sm_90a into a shared library under
 ``_build/`` (named by a hash of the source and flags, so an edit rebuilds)
-and loaded with ctypes.  Nothing else is built or fetched.  Nothing here runs
-at import time: the CPU tests import every module and have no nvcc.
+and loaded with ctypes; load_all starts one nvcc per source at once.
+Nothing else is built or fetched.  Nothing here runs at import time: the CPU
+tests import every module and have no nvcc.
 """
 from __future__ import annotations
 
@@ -14,6 +16,7 @@ import os
 import subprocess
 import threading
 import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 _PKG = Path(__file__).resolve().parent
@@ -22,7 +25,10 @@ BUILD_DIR = _PKG / "_build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
-_lock = threading.Lock()
+LIBRARIES = ("warp_fwd", "warp_bwd")
+
+_lock = threading.Lock()           # guards _name_locks
+_name_locks = {}
 _libs = {}
 # name -> {"seconds": build time (0.0 when the library was already built),
 #          "ptxas": nvcc's register / spill report}
@@ -40,6 +46,8 @@ def _nvcc() -> str:
 def load(name: str) -> ctypes.CDLL:
     """Build (if needed) and load ``csrc/<name>.cu``; returns the library."""
     with _lock:
+        lock = _name_locks.setdefault(name, threading.Lock())
+    with lock:
         if name in _libs:
             return _libs[name]
         src = SRC_DIR / f"{name}.cu"
@@ -62,3 +70,9 @@ def load(name: str) -> ctypes.CDLL:
         _libs[name] = lib
         build_info[name] = info
         return lib
+
+
+def load_all(names=LIBRARIES):
+    """Build and load several libraries with one nvcc each, all at once."""
+    with ThreadPoolExecutor(max_workers=len(names)) as pool:
+        return dict(zip(names, pool.map(load, names)))

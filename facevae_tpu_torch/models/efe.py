@@ -3,10 +3,14 @@ facevae_tpu/models/efe.py).
 
 forward(x, x_a=None, kp_old, train_vae=False) returns
   (kp [N,K,3], x_c, x_a_c, (mu, logstd), (x_vae, x_hat))
-like the JAX module; in this inference slice x_c / x_a_c / mu / logstd are
-None and x_vae / x_hat are channel-last.  kp is a soft-argmax over a heatmap
-mixed with gaussians of the pose-only keypoints kp_old.  The contrastive
-branch (x_a) and VAE sampling are training paths and raise here.
+like the JAX module.  With x_a (the augmented view, training's contrastive
+branch) the shared encoder runs on x and then on x_a, and x_c / x_a_c are
+the two encoder maps, channel-last [N,h,w,C] like the JAX module's (the
+contrastive head flattens them in that order); without x_a they are None.
+x_vae / x_hat are channel-last; mu / logstd are None (z = mu).  kp is a
+soft-argmax over a heatmap mixed with gaussians of the pose-only keypoints
+kp_old.  VAE sampling (train_vae=True) raises: the reference trains with it
+off (quirk q8).
 """
 from __future__ import annotations
 
@@ -64,10 +68,11 @@ class EFEConv(nn.Module):
         self.mix_out = SameBlock3D(2 * K, K, use_weight_norm, device=device)
 
     def forward(self, x, x_a=None, kp_old=None, train_vae: bool = False):
-        if x_a is not None:
-            raise NotImplementedError("EFE's contrastive branch (x_a) is a training "
-                                      "path, not ported yet (ROADMAP Queue 1)")
         x = self.down(x.permute(0, 3, 1, 2))
+        x_c = x_a_c = None
+        if x_a is not None:               # second call of the shared encoder
+            x_c = x.permute(0, 2, 3, 1)
+            x_a_c = self.down(x_a.permute(0, 3, 1, 2)).permute(0, 2, 3, 1)
         x_vae = x
         (mu, logstd), x_hat = self.vae(x, train_vae)
         x = self.mid_conv(x_hat)
@@ -82,5 +87,5 @@ class EFEConv(nn.Module):
             x = block(x)
         x = self.mix_out(x)
         kp = heatmap2kp_cl(out2heatmap_cl(x.permute(0, 2, 3, 4, 1)))
-        return (kp, None, None, (mu, logstd),
+        return (kp, x_c, x_a_c, (mu, logstd),
                 (x_vae.permute(0, 2, 3, 1), x_hat.permute(0, 2, 3, 1)))

@@ -1,5 +1,5 @@
 """Model factory (port of facevae_tpu/models/factory.py): config -> the six
-generator-side nets, seeded, in eval mode."""
+generator-side nets and the discriminator, seeded, in eval mode."""
 from __future__ import annotations
 
 from typing import Dict, Optional, Sequence
@@ -7,9 +7,10 @@ from typing import Dict, Optional, Sequence
 import torch
 import torch.nn as nn
 
-from facevae_tpu.config import ModelConfig
+from facevae_tpu_torch.config import ModelConfig
 from facevae_tpu_torch.models.afe import AFE
 from facevae_tpu_torch.models.ckd import CKD
+from facevae_tpu_torch.models.discriminator import Discriminator
 from facevae_tpu_torch.models.efe import EFEConv
 from facevae_tpu_torch.models.generator import Generator
 from facevae_tpu_torch.models.hpe_ede import HPE_EDE
@@ -17,21 +18,22 @@ from facevae_tpu_torch.models.mfe import MFE
 from facevae_tpu_torch.nn import init_parameters
 
 G_MODEL_NAMES = ("efe", "afe", "ckd", "hpe_ede", "mfe", "generator")
+D_MODEL_NAMES = ("discriminator",)
 
 
 def build_models(cfg: ModelConfig, device=None,
                  generator: Optional[torch.Generator] = None,
                  names: Sequence[str] = G_MODEL_NAMES) -> Dict[str, nn.Module]:
     """Instantiate the named nets on ``device``, initialized from
-    ``generator`` (default: seed 0 on that device) in G_MODEL_NAMES order,
-    and put them in eval mode.
+    ``generator`` (default: seed 0 on that device) in G_MODEL_NAMES +
+    D_MODEL_NAMES order, and put them in eval mode.
 
-    Raises on the discriminator and on EFE variants other than conv5: they
-    are not ported yet (ROADMAP Queue 1)."""
-    unknown = [n for n in names if n not in G_MODEL_NAMES]
+    Raises on EFE variants other than conv5: they are not ported yet
+    (ROADMAP Queue 1)."""
+    unknown = [n for n in names if n not in G_MODEL_NAMES + D_MODEL_NAMES]
     if unknown:
-        raise NotImplementedError(f"{unknown} not ported yet; the port builds "
-                                  f"{G_MODEL_NAMES} (ROADMAP Queue 1)")
+        raise ValueError(f"unknown nets {unknown}; the port builds "
+                         f"{G_MODEL_NAMES + D_MODEL_NAMES}")
     ctor = {
         "efe": lambda: EFEConv(
             variant=cfg.efe_variant, down_seq=tuple(cfg.efe_down_seq),
@@ -55,11 +57,14 @@ def build_models(cfg: ModelConfig, device=None,
         "generator": lambda: Generator(
             up_seq=tuple(cfg.gen_up_seq), n_res=cfg.gen_n_res, D=cfg.depth,
             C=cfg.app_channels, use_weight_norm=cfg.gen_use_weight_norm, device=device),
+        "discriminator": lambda: Discriminator(
+            down_seq=tuple(cfg.disc_down_seq), K=cfg.num_kp,
+            use_weight_norm=cfg.disc_use_weight_norm, device=device),
     }
     if generator is None:
         generator = torch.Generator(device=device or "cpu").manual_seed(0)
     models = {}
-    for name in G_MODEL_NAMES:
+    for name in G_MODEL_NAMES + D_MODEL_NAMES:
         if name in names:
             models[name] = init_parameters(ctor[name](), generator).eval()
     return models

@@ -1,5 +1,5 @@
 """Neural building blocks (port of facevae_tpu/nn): layers.py (Conv, Dense,
-BatchNorm, InstanceNorm in eval form), blocks.py (CNA conv blocks), init.py
+BatchNorm, InstanceNorm; eval and training forms), blocks.py (CNA conv blocks), init.py
 (seeded init)."""
 from facevae_tpu_torch.nn.init import init_parameters
 from facevae_tpu_torch.nn.layers import BatchNorm, Conv, Dense, InstanceNorm

@@ -1,14 +1,16 @@
-"""Core layers in eval form: Conv (2D/3D, optional spectral norm), Dense,
-BatchNorm, InstanceNorm (port of facevae_tpu/nn/layers.py).
+"""Core layers: Conv (2D/3D, optional spectral norm), Dense, BatchNorm,
+InstanceNorm (port of facevae_tpu/nn/layers.py).
 
 Layouts are PyTorch's: weights [O, I, *k], activations [N, C, (D,) H, W].
 The JAX package's TPU execution paths — space-to-depth packing, z-banded and
 depth-folded convs, the MXU weight gradient — compute the same function with
 the same parameters and are not ported: each is a plain conv here.
 
-This slice serves inference, so BatchNorm and spectral norm implement their
-eval semantics and raise in training mode; the training forms (batch
-statistics, SyncBN, the power iteration) come with the training step.
+Training forms follow the JAX layers: BatchNorm normalizes by the biased
+batch variance and updates its running statistics in place; a spectral-norm
+Conv runs one power iteration per training forward.  The buffers a forward
+updates in place stand in for the JAX package's VarBank: calls see each
+other's updates in call order.  BatchNorm is single-device (no SyncBN yet).
 """
 from __future__ import annotations
 
@@ -27,16 +29,16 @@ def _tuple(v, d):
     return (v,) * d if isinstance(v, int) else tuple(v)
 
 
-def _no_training(module):
-    raise NotImplementedError(
-        f"{type(module).__name__} is ported in eval form only; call .eval() "
-        "(training-mode statistics come with the training step, ROADMAP Queue 1)")
+def _l2norm(v, eps=1e-12):
+    return v / (torch.linalg.vector_norm(v) + eps)
 
 
 class Conv(nn.Module):
     """2D/3D convolution.  With spectral_norm=True the weight is divided by
-    sigma = u^T W v using the STORED u and v (eval semantics: no power
-    iteration).  weight_v is kept in torch's (I, *k) flattening of W."""
+    sigma = u^T W v.  In training mode one power iteration first updates the
+    stored u and v in place (without gradient); gradients flow through W
+    only.  In eval mode the stored u and v are used as they are.  weight_v is
+    kept in torch's (I, *k) flattening of W."""
 
     def __init__(self, in_channels, out_channels, kernel_size, stride=1, padding=0,
                  dim=2, bias=True, spectral_norm=False, device=None):
@@ -73,9 +75,14 @@ class Conv(nn.Module):
     def forward(self, x):
         w = self.weight
         if self.spectral_norm:
+            w_mat = w.flatten(1)
             if self.training:
-                _no_training(self)
-            sigma = torch.dot(self.weight_u, w.flatten(1) @ self.weight_v)
+                with torch.no_grad():
+                    self.weight_v.copy_(_l2norm(w_mat.t() @ self.weight_u))
+                    self.weight_u.copy_(_l2norm(w_mat @ self.weight_v))
+            # clones: the next training call updates u, v in place, while the
+            # backward of this call still needs them (their version counters)
+            sigma = torch.dot(self.weight_u.clone(), w_mat @ self.weight_v.clone())
             w = w / sigma
         return _CONV[self.dim](x, w, self.bias, self.stride, self.padding)
 
@@ -97,30 +104,54 @@ def _per_channel(v, x):
 
 
 class BatchNorm(nn.Module):
-    """(Sync)BatchNorm in eval form: the running statistics and the affine
-    fold into one per-channel multiply-add, y = x * a + b with
-    a = weight / sqrt(running_var + eps), b = bias - running_mean * a."""
+    """BatchNorm over dim 1 (channels) of [N, C, ...] or [N, C].
 
-    def __init__(self, features, eps=1e-5, device=None):
+    Training: statistics E[x] and E[x^2] - E[x]^2 in fp32, normalization by
+    that biased variance, and the running statistics updated in place with
+    the unbiased variance and momentum 0.1 (new = 0.9 * old + 0.1 * batch).
+    Eval: the running statistics.  Either way the statistics and the affine
+    fold into one per-channel multiply-add, y = x * a + b.  affine=False has
+    no weight or bias (the SimSiam projector's last BN)."""
+
+    def __init__(self, features, eps=1e-5, momentum=0.1, affine=True, device=None):
         super().__init__()
         self.eps = eps
-        self.weight = nn.Parameter(torch.empty(features, device=device))
-        self.bias = nn.Parameter(torch.empty(features, device=device))
+        self.momentum = momentum
+        self.affine = affine
+        if affine:
+            self.weight = nn.Parameter(torch.empty(features, device=device))
+            self.bias = nn.Parameter(torch.empty(features, device=device))
         self.register_buffer("running_mean", torch.empty(features, device=device))
         self.register_buffer("running_var", torch.empty(features, device=device))
 
     @torch.no_grad()
     def init_parameters(self, generator):
-        self.weight.fill_(1.0)
-        self.bias.zero_()
+        if self.affine:
+            self.weight.fill_(1.0)
+            self.bias.zero_()
         self.running_mean.zero_()
         self.running_var.fill_(1.0)
 
     def forward(self, x):
         if self.training:
-            _no_training(self)
-        a = self.weight * torch.rsqrt(self.running_var + self.eps)
-        b = self.bias - self.running_mean * a
+            dims = (0,) + tuple(range(2, x.dim()))
+            xf = x.float()
+            mean = xf.mean(dims)
+            var = (xf * xf).mean(dims) - mean * mean
+            with torch.no_grad():
+                n = float(x.numel() // x.shape[1])
+                m = self.momentum
+                self.running_mean.copy_((1 - m) * self.running_mean + m * mean)
+                self.running_var.copy_((1 - m) * self.running_var
+                                       + m * (var * (n / max(n - 1.0, 1.0))))
+        else:
+            mean, var = self.running_mean, self.running_var
+        a = torch.rsqrt(var + self.eps)
+        if self.affine:
+            a = self.weight * a
+            b = self.bias - mean * a
+        else:
+            b = -mean * a
         return x * _per_channel(a, x).to(x.dtype) + _per_channel(b, x).to(x.dtype)
 
 

@@ -5,7 +5,7 @@ from __future__ import annotations
 
 import torch
 
-from facevae_tpu_torch.ops.geometry import make_coordinate_grid_3d
+from facevae_tpu_torch.ops.geometry import make_coordinate_grid_2d, make_coordinate_grid_3d
 
 
 def out2heatmap_cl(out: torch.Tensor, temperature: float = 0.1) -> torch.Tensor:
@@ -27,4 +27,12 @@ def kp2gaussian_3d_cl(kp: torch.Tensor, spatial_size,
     """Gaussian bumps at keypoints: kp [N,K,3] -> [N,D,H,W,K]."""
     grid = make_coordinate_grid_3d(spatial_size, dtype=kp.dtype, device=kp.device)
     diff = grid[None, :, :, :, None, :] - kp[:, None, None, None, :, :]
+    return torch.exp(-0.5 * torch.sum(diff * diff, dim=-1) / kp_variance)
+
+
+def kp2gaussian_2d_cl(kp: torch.Tensor, spatial_size,
+                      kp_variance: float = 0.01) -> torch.Tensor:
+    """Gaussian bumps at keypoints: kp [N,K,2] -> [N,H,W,K]."""
+    grid = make_coordinate_grid_2d(spatial_size, dtype=kp.dtype, device=kp.device)
+    diff = grid[None, :, :, None, :] - kp[:, None, None, :, :]
     return torch.exp(-0.5 * torch.sum(diff * diff, dim=-1) / kp_variance)

@@ -20,6 +20,21 @@ def interpolate_bilinear_2d(x: torch.Tensor, out_hw) -> torch.Tensor:
                          align_corners=False, antialias=False)
 
 
+def interpolate_nearest_2d(x: torch.Tensor, out_hw) -> torch.Tensor:
+    """Nearest resize [N,C,H,W] -> [N,C,Ho,Wo]: source index floor(dst *
+    in/out), the reference's F.interpolate default (Hopenet's 224 input)."""
+    if tuple(out_hw) == tuple(x.shape[-2:]):
+        return x
+    return F.interpolate(x, size=tuple(out_hw), mode="nearest")
+
+
+def resize_bilinear_half(x: torch.Tensor) -> torch.Tensor:
+    """scale 0.5 bilinear downsample [N,C,H,W] (align_corners=False, no
+    antialiasing: the 2x2 average), the perceptual loss's pyramid step."""
+    H, W = x.shape[-2:]
+    return interpolate_bilinear_2d(x, (H // 2, W // 2))
+
+
 def upsample_nearest_2d(x: torch.Tensor, scale: int = 2) -> torch.Tensor:
     """[N,C,H,W] nearest upsample (pixel duplication)."""
     return F.interpolate(x, scale_factor=scale, mode="nearest")

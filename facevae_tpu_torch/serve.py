@@ -1,9 +1,11 @@
 """Persistent batched inference server for the port (counterpart of the
 root serve.py): ``python -m facevae_tpu_torch.serve --device cuda``.
 
-Same endpoints, flags and batching as the JAX server — it reuses that
-server's request collector, HTTP handler and image decoding, which are
-framework-free — around the port's InferencePipeline:
+Same endpoints, flags and batching as the JAX server, around the port's
+InferencePipeline.  The request collector, the HTTP handler and the image
+decoding are the port's own copies of the JAX server's (serve.py), with the
+same behaviour, including its wait of up to 100 ms before a second full
+batch of one drain (ROADMAP Queue 3):
 
   GET  /healthz                  -> {"ok": true, "batches": N, ...}
   POST /source?session=<id>      -> register/replace the session's source
@@ -18,20 +20,20 @@ is not ported yet, so the server needs --random_init true.
 from __future__ import annotations
 
 import argparse
+import io
+import json
 import queue
 import threading
 import time
-from http.server import ThreadingHTTPServer
+from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
+from urllib.parse import parse_qs, urlparse
 
 import numpy as np
 import torch
 
-import serve as _jax_serve        # root serve.py: stdlib-only at import time
-from facevae_tpu.config import Config, ModelConfig, tiny_config
+from facevae_tpu_torch.config import Config, ModelConfig, tiny_config
 from facevae_tpu_torch.models import build_models
 from facevae_tpu_torch.train.inference import InferencePipeline
-
-make_handler = _jax_serve.make_handler
 
 
 class HTTPServer(ThreadingHTTPServer):
@@ -62,18 +64,18 @@ def parse_args(argv=None):
     return p.parse_args(argv)
 
 
-class BatchedEngine(_jax_serve.BatchedEngine):
-    """The JAX server's collector (per-kind queues, flush on full batch or
-    window, padding to max_batch, error fan-out) driving the port's
-    pipeline.  Session encodings stay on the device at batch 1."""
+class BatchedEngine:
+    """Collects requests per kind (drive / front) and runs each kind as one
+    batch padded to max_batch: flushed when full or when its oldest request
+    has waited window_ms.  Errors fan out to every request of the batch.
+    Session encodings stay on the device at batch 1."""
 
     def __init__(self, pipe: InferencePipeline, device, max_batch, window_ms):
-        # the parent's __init__ builds the JAX pipeline; set its state here
         self.pipe = pipe
         self.device = torch.device(device)
         self.max_batch = max_batch
         self.window_s = window_ms / 1e3
-        self.sessions = {}
+        self.sessions = {}            # session id -> (fs, kp_c, kp_s, Rs), batch 1
         self.lock = threading.Lock()
         self.requests: "queue.Queue" = queue.Queue()
         self.stats = {"batches": 0, "frames": 0, "padded": 0}
@@ -87,10 +89,85 @@ class BatchedEngine(_jax_serve.BatchedEngine):
     def _tensor(self, imgs):
         return torch.from_numpy(np.ascontiguousarray(imgs, np.float32)).to(self.device)
 
+    # -- session management ------------------------------------------------
     def set_source(self, session, img):
         enc = self.pipe.encode_source(self._tensor(np.asarray(img)[None]))
         with self.lock:
             self.sessions[session] = enc
+
+    def has_session(self, session):
+        with self.lock:
+            return session in self.sessions
+
+    # -- request path ------------------------------------------------------
+    def _submit(self, kind, session, img, timeout):
+        done = threading.Event()
+        slot = {}
+        self.requests.put((kind, session, img, slot, done))
+        if not done.wait(timeout):
+            raise TimeoutError("inference timed out")
+        if "error" in slot:
+            raise RuntimeError(slot["error"])
+        return slot["out"]
+
+    def drive(self, session, img, timeout=30.0):
+        """Blocking: returns the generated frame [H,W,3] float32."""
+        return self._submit("drive", session, img, timeout)
+
+    def frontalize(self, img, timeout=30.0):
+        """Blocking; batched through the collector like /drive."""
+        return self._submit("front", None, img, timeout)
+
+    def warmup(self):
+        """Run each batched graph once before serving traffic."""
+        self.set_source("_warm", self._zero[0])
+        self.drive("_warm", self._zero[0], timeout=3600.0)
+        self.frontalize(self._zero[0], timeout=3600.0)
+        with self.lock:
+            self.sessions.pop("_warm", None)
+        self.stats.update(batches=0, frames=0, padded=0)
+
+    # -- collector ---------------------------------------------------------
+    def _run(self):
+        # Per-kind pending lists; a kind flushes when it reaches max_batch or
+        # its oldest request has waited window_s; fuller kinds flush first.
+        # Like the JAX collector, after flushing one full batch of a drain it
+        # resets that kind's deadline and waits (up to 100 ms) before the next.
+        pending = {}              # kind -> [requests]
+        deadlines = {}            # kind -> monotonic deadline of oldest request
+        while not self._stop:
+            timeout = 0.1
+            if deadlines:
+                timeout = min(0.1, max(0.0, min(deadlines.values())
+                                       - time.monotonic()))
+            try:
+                req = self.requests.get(timeout=timeout)
+            except queue.Empty:
+                req = None
+            while req is not None:   # drain everything already queued
+                pending.setdefault(req[0], []).append(req)
+                deadlines.setdefault(req[0], time.monotonic() + self.window_s)
+                try:
+                    req = self.requests.get_nowait()
+                except queue.Empty:
+                    req = None
+            now = time.monotonic()
+            ready = [k for k, b in pending.items()
+                     if len(b) >= self.max_batch or now >= deadlines[k]]
+            for kind in sorted(ready, key=lambda k: -len(pending[k])):
+                batch = pending[kind][:self.max_batch]
+                rest = pending[kind][self.max_batch:]
+                if rest:
+                    pending[kind] = rest
+                    deadlines[kind] = time.monotonic() + self.window_s
+                else:
+                    del pending[kind], deadlines[kind]
+                try:
+                    self._flush(kind, batch)
+                except Exception as e:                # fan the error out
+                    for _, _, _, slot, done in batch:
+                        slot["error"] = repr(e)
+                        done.set()
 
     def _flush(self, kind, batch):
         t0 = time.perf_counter()
@@ -115,6 +192,78 @@ class BatchedEngine(_jax_serve.BatchedEngine):
         for i, (_, _, _, slot, done) in enumerate(batch):
             slot["out"] = out[i]
             done.set()
+
+    def stop(self):
+        self._stop = True
+
+
+def _decode_image(body, size):
+    """Raw RGB bytes (size*size*3 uint8) or an image file -> [H,W,3] float32."""
+    raw_len = size * size * 3
+    if len(body) == raw_len:
+        a = np.frombuffer(body, np.uint8).reshape(size, size, 3)
+        return a.astype(np.float32) / 255.0
+    import imageio.v2 as imageio
+    a = imageio.imread(io.BytesIO(body))
+    if a.shape[:2] != (size, size):
+        raise ValueError(f"expected {size}x{size}, got {a.shape}")
+    return a[..., :3].astype(np.float32) / 255.0
+
+
+def make_handler(engine, size):
+    class Handler(BaseHTTPRequestHandler):
+        def log_message(self, *a):          # quiet
+            pass
+
+        def _send(self, code, body, ctype="application/octet-stream"):
+            self.send_response(code)
+            self.send_header("Content-Type", ctype)
+            self.send_header("Content-Length", str(len(body)))
+            self.end_headers()
+            self.wfile.write(body)
+
+        def _json(self, code, obj):
+            self._send(code, json.dumps(obj).encode(), "application/json")
+
+        def do_GET(self):
+            if urlparse(self.path).path == "/healthz":
+                self._json(200, {"ok": True, **engine.stats,
+                                 "sessions": len(engine.sessions)})
+            else:
+                self._json(404, {"error": "unknown path"})
+
+        def do_POST(self):
+            u = urlparse(self.path)
+            q = parse_qs(u.query)
+            session = q.get("session", ["default"])[0]
+            body = self.rfile.read(int(self.headers.get("Content-Length", 0)))
+            try:
+                img = _decode_image(body, size)
+            except Exception as e:
+                self._json(400, {"error": str(e)})
+                return
+            try:
+                if u.path == "/source":
+                    engine.set_source(session, img)
+                    self._json(200, {"ok": True, "session": session})
+                elif u.path == "/drive":
+                    if not engine.has_session(session):
+                        self._json(409, {"error": f"no source for session "
+                                                  f"{session!r}; POST /source first"})
+                        return
+                    out = engine.drive(session, img)
+                    self._send(200, (np.clip(out, 0, 1) * 255)
+                               .astype(np.uint8).tobytes())
+                elif u.path == "/frontalize":
+                    out = np.asarray(engine.frontalize(img))
+                    self._send(200, (np.clip(out, 0, 1) * 255)
+                               .astype(np.uint8).tobytes())
+                else:
+                    self._json(404, {"error": "unknown path"})
+            except Exception as e:
+                self._json(500, {"error": repr(e)})
+
+    return Handler
 
 
 def build_engine(args) -> BatchedEngine:

@@ -16,7 +16,7 @@ from typing import Dict
 import torch
 import torch.nn as nn
 
-from facevae_tpu.config import Config
+from facevae_tpu_torch.config import Config
 from facevae_tpu_torch import numerics
 from facevae_tpu_torch.ops.geometry import transform_kp, transform_kp_with_new_pose
 

@@ -118,14 +118,21 @@ def test_bridge_maps_by_name(env):
 
 
 def test_build_models_refuses_what_is_not_ported(env):
-    with pytest.raises(NotImplementedError):
-        build_models(env["cfg"].model, names=("discriminator",))
+    """The dormant EFE variants and VAE sampling are not ported; unknown
+    names are refused; the discriminator and the training forms are."""
     with pytest.raises(NotImplementedError):
         build_models(dataclasses.replace(env["cfg"].model, efe_variant="conv4"),
                      names=("efe",))
-    generator = build_models(env["cfg"].model, names=("generator",))["generator"]
-    with pytest.raises(NotImplementedError, match="eval form"):
-        generator.train()(*[torch.from_numpy(a) for a in env["inputs"]["generator"]])
+    with pytest.raises(ValueError, match="unknown"):
+        build_models(env["cfg"].model, names=("hopenet",))
+    efe = build_models(env["cfg"].model, names=("efe",))["efe"]
+    img, _, kp = env["inputs"]["efe"]
+    with pytest.raises(NotImplementedError, match="train_vae"):
+        efe(torch.from_numpy(img), None, torch.from_numpy(kp), train_vae=True)
+    nets = build_models(env["cfg"].model, names=("generator", "discriminator"))
+    out = nets["generator"].train()(*[torch.from_numpy(a) for a in env["inputs"]["generator"]])
+    logits, features = nets["discriminator"].train()(out, torch.from_numpy(kp))
+    assert logits.shape[-1] == 1 and len(features) == 4
 
 
 @pytest.mark.parametrize("pattern, norm, act, sn, dim", [

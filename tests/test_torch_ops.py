@@ -1,6 +1,8 @@
 """PyTorch port: geometry, heatmap, interpolate and motion ops against
 facevae_tpu's on the CPU (same numpy inputs, atol 1e-5: fp32 values of order
-1-20 that differ only in summation order); and the port's import rule."""
+1-20 that differ only in summation order); the port's import rule; and its
+copy of the configuration dataclasses."""
+import dataclasses
 import subprocess
 import sys
 
@@ -29,13 +31,34 @@ def _angles(rs, n=3):
     return [rs.uniform(-1.2, 1.2, n).astype(np.float32) for _ in range(3)]
 
 
+_FORBIDDEN = ("jax", "jaxlib", "flax", "facevae_tpu", "serve")
+
+
 def test_import_has_no_jax():
-    mods = ("facevae_tpu_torch, facevae_tpu_torch.models, facevae_tpu_torch.train, "
-            "facevae_tpu_torch.serve, facevae_tpu_torch.convert, facevae_tpu_torch.kernels")
-    code = (f"import sys, {mods}; "
-            "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'flax')]; "
-            "assert not bad, bad")
-    subprocess.run([sys.executable, "-c", code], cwd=ROOT, check=True)
+    """Every module of the port, and chip_smoke, import nothing of JAX and
+    nothing of the JAX package (not even its JAX-free modules, such as
+    facevae_tpu.config or the root serve.py)."""
+    code = ("import importlib, pkgutil, sys, facevae_tpu_torch, chip_smoke\n"
+            "names = [m.name for m in pkgutil.walk_packages(facevae_tpu_torch.__path__, "
+            "'facevae_tpu_torch.')]\n"
+            "for n in names: importlib.import_module(n)\n"
+            f"bad = [m for m in sys.modules if m.split('.')[0] in {_FORBIDDEN!r}]\n"
+            "assert not bad, bad\n"
+            "print(len(names))")
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, check=True,
+                         capture_output=True, text=True).stdout
+    assert int(out) >= 30          # the walk found the port's modules
+
+
+def test_config_copy_matches_the_jax_package():
+    from facevae_tpu import config as jc
+    from facevae_tpu_torch import config as tc
+    assert dataclasses.asdict(tc.Config()) == dataclasses.asdict(jc.Config())
+    assert dataclasses.asdict(tc.tiny_config()) == dataclasses.asdict(jc.tiny_config())
+    for name in ("ModelConfig", "LossConfig", "TrainConfig", "DataConfig", "Config"):
+        assert ([f.name for f in dataclasses.fields(getattr(tc, name))]
+                == [f.name for f in dataclasses.fields(getattr(jc, name))]), name
+    assert tc.ModelConfig().kp_spatial == jc.ModelConfig().kp_spatial
 
 
 def test_pose_rotation(rng):

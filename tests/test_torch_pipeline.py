@@ -134,7 +134,9 @@ def test_server_batches_requests(env):
         assert engine.stats == {"batches": 2, "frames": 4, "padded": 0}
         code, body = _post(f"{base}/frontalize", frame[1])
         assert code == 200 and len(body) == size * size * 3
-        assert fast_warp.launches == {"warp_fwd": 0, "warp_fwd_plain": 6}
+        assert fast_warp.launches == {"warp_fwd": 0, "warp_fwd_plain": 6, "warp_bwd_dgrid": 0,
+                                      "warp_bwd_dgrid_plain": 0, "warp_bwd_dx": 0,
+                                      "warp_bwd_dx_plain": 0}
     finally:
         server.shutdown()
         server.server_close()

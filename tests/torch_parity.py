@@ -36,6 +36,26 @@ def assert_close(actual, ref, rel, what=""):
     return err / scale if scale else 0.0
 
 
+SPREAD = 10.0
+
+
+def assert_held(actual, ref, others, rel, what="", scale=None):
+    """Hold ``actual`` (the port) to ``ref`` (the JAX package) where the
+    reference itself is ill-conditioned: max|actual - ref| <= SPREAD *
+    max_o max|o - ref| + rel * scale, over ``others``, the JAX package's
+    answers under rounding-level changes (inputs nudged by a few fp32 ulps;
+    its float64 mode); scale defaults to max|ref|."""
+    actual, ref = (to_np(a).astype(np.float64) for a in (actual, ref))
+    others = [to_np(o).astype(np.float64) for o in others]
+    assert actual.shape == ref.shape, (what, actual.shape, ref.shape)
+    err = float(np.abs(actual - ref).max())
+    noise = max(float(np.abs(o - ref).max()) for o in others)
+    scale = float(np.abs(ref).max()) if scale is None else scale
+    limit = SPREAD * noise + rel * scale
+    assert err <= limit, (f"{what}: max|err| {err:.3e} > {SPREAD:g} * JAX's own spread "
+                          f"{noise:.3e} + {rel:g} * scale {scale:.3e}")
+
+
 @pytest.fixture(scope="module", autouse=True)
 def one_torch_thread():
     """The suite runs with several xdist workers: keep torch to one thread."""

@@ -13,7 +13,10 @@ frontalize_frame on two source and two driving images, and saves
 
 chip_smoke.py checks the port against it on the card, and
 tests/test_torch_pipeline.py checks it on the CPU.  The parity tests use the
-helpers below too.
+helpers below too: g_variables for the six G nets, train_variables and
+jax_train_state for a whole JAX train state (the seven trainable nets, the
+frozen teachers and the contrastive head, every tree filled from one numpy
+seed), and jax_step_grads for the gradients of one JAX step.
 
 Usage:  python tools/make_torch_golden.py [--out PATH] [--seed 0]
 """
@@ -76,7 +79,7 @@ def fill_variables(shapes, rs):
     from power iterations on the filled kernel (so sigma is the spectral
     norm, not the near-zero sigma of random u/v)."""
     f32 = np.float32
-    params = dict(_flat(shapes["params"]))
+    params = dict(_flat(shapes.get("params", {})))
     out = {"params": {}, "batch_stats": {}, "spectral": {}}
     for path, s in sorted(params.items()):
         mod, leaf = path[:-1], path[-1]
@@ -125,6 +128,100 @@ def g_variables(cfg, seed=0):
             lambda: models[name].init({"params": key, "noise": key}, *args[name]))
         out[name] = fill_variables(shapes, rs)
     return out
+
+
+TRAIN_NETS = ("efe", "afe", "ckd", "hpe_ede", "mfe", "generator", "discriminator",
+              "hopenet", "perceptual", "contrastive")
+
+
+def train_variables(cfg, seed=0):
+    """(the JAX modules, {net: filled variables}) for every module of the
+    JAX train step, filled in TRAIN_NETS order from one numpy
+    RandomState(seed): the teachers' ~46M parameters are regenerated from
+    the seed, never stored."""
+    import jax
+    import jax.numpy as jnp
+    from facevae_tpu.train.state import build_all_modules
+    models = build_all_modules(cfg)
+    m = cfg.model
+    args = _init_args(cfg)
+    img = jnp.zeros((1, m.image_size, m.image_size, 3), jnp.float32)
+    feat = (m.image_size // 64) ** 2 * m.efe_down_seq[-1]
+    args.update({"discriminator": (img, jnp.zeros((1, m.num_kp, 3), jnp.float32)),
+                 "hopenet": (jnp.zeros((1, 224, 224, 3), jnp.float32),),
+                 "perceptual": (img, img),
+                 "contrastive": (jnp.zeros((2, feat), jnp.float32),) * 2})
+    key = jax.random.PRNGKey(0)
+    rs = np.random.RandomState(seed)
+    out = {}
+    for name in TRAIN_NETS:
+        shapes = jax.eval_shape(
+            lambda: models[name].init({"params": key, "noise": key}, *args[name]))
+        out[name] = fill_variables(shapes, rs)
+    return models, out
+
+
+def jax_train_state(cfg, variables):
+    """facevae_tpu's TrainState over ``variables`` (train_variables), with
+    fresh Adam states, as create_train_state lays it out."""
+    import jax.numpy as jnp
+    from facevae_tpu.train.state import (D_MODEL_NAMES, G_MODEL_NAMES, TrainState,
+                                         make_optimizers)
+    g_params = {n: variables[n]["params"] for n in G_MODEL_NAMES}
+    d_params = {n: variables[n]["params"] for n in D_MODEL_NAMES}
+    g_tx, d_tx = make_optimizers(cfg)
+    return TrainState(
+        g_params=g_params, d_params=d_params,
+        c_params={"contrastive": variables["contrastive"]["params"]},
+        teachers={"hopenet": variables["hopenet"], "perceptual": variables["perceptual"]},
+        batch_stats={n: v["batch_stats"] for n, v in variables.items()
+                     if "batch_stats" in v and n not in ("hopenet", "perceptual")},
+        spectral={n: v["spectral"] for n, v in variables.items() if "spectral" in v},
+        g_opt=g_tx.init(g_params), d_opt=d_tx.init(d_params),
+        epoch=jnp.zeros((), jnp.int32), step=jnp.zeros((), jnp.int32))
+
+
+def train_state_tree(state):
+    """The variables of a JAX TrainState as nested numpy, keyed as
+    facevae_tpu_torch.convert.load_jax_train_state expects."""
+    import jax
+    return {k: jax.tree.map(np.asarray, getattr(state, k))
+            for k in ("g_params", "d_params", "c_params", "teachers", "batch_stats",
+                      "spectral")}
+
+
+def jax_step_grads(cfg, models, state, batch, rng, transform_params):
+    """One JAX step's gradients, by the JAX package's own objective: the
+    generator phase differentiated at ``state`` and the discriminator phase
+    at the G phase's BN / spectral state, as facevae_tpu/train/step.py does
+    (its step returns no gradients).  Returns a dict of numpy trees:
+    losses_g, losses_d, g_grads, d_grads, batch_stats, spectral (after the
+    D phase)."""
+    import jax
+    from facevae_tpu.train.objective import VarBank, discriminator_forward, generator_forward
+    s, d, s_a, d_a = batch
+
+    def g_loss(g_params):
+        bank = VarBank({**g_params, **state.d_params, **state.c_params},
+                       state.batch_stats, state.spectral)
+        losses, aux = generator_forward(models, state.teachers, bank, cfg, s, d, s_a, d_a,
+                                        rng, transform_params=transform_params)
+        return sum(losses.values()), (losses, aux, *bank.collections())
+
+    def d_loss(d_params, stats, spectral, generated_d, kp_d):
+        bank = VarBank({**state.g_params, **d_params, **state.c_params}, stats, spectral)
+        losses = discriminator_forward(models, bank, cfg, d, generated_d, kp_d)
+        return sum(losses.values()), (losses, *bank.collections())
+
+    (_, (losses_g, aux, stats, spectral)), g_grads = jax.jit(
+        jax.value_and_grad(g_loss, has_aux=True))(state.g_params)
+    (_, (losses_d, stats, spectral)), d_grads = jax.jit(
+        jax.value_and_grad(d_loss, has_aux=True))(
+            state.d_params, stats, spectral, jax.lax.stop_gradient(aux["generated_d"]),
+            jax.lax.stop_gradient(aux["kp_d"]))
+    return jax.tree.map(np.asarray, {"losses_g": losses_g, "losses_d": losses_d,
+                                     "g_grads": g_grads, "d_grads": d_grads,
+                                     "batch_stats": stats, "spectral": spectral})
 
 
 def jax_pipeline(cfg, variables):
