@@ -6,38 +6,57 @@
 Phases, each fatal on failure (exit code 1, no result line):
   1. device   nvidia-smi name and power limit, torch / CUDA versions, the
               numerics switches (TF32 off).
-  2. build    nvcc-builds every kernel library from csrc/, one nvcc per
-              source, all started together.
+  2. build    nvcc-builds every kernel library from csrc/ (warp_fwd,
+              warp_bwd, warp_grid), one nvcc per source, all started
+              together.
   3. kernels  each kernel against its plain PyTorch version on the card, at
-              the main paths' shapes (batch 8: MFE x[8,16,64,64,4] K1=15,
-              Generator x[8,16,64,64,32] K1=1), fp32 and bf16, with
+              the main paths' shapes (batch 8), fp32 and bf16, with
               far-out-of-volume, +-inf, last-index and exact-integer
-              coordinates: the warp forward, and the backward's dgrid and
-              dx kernels.  Median CUDA-event times of the kernel, its plain
-              version and F.grid_sample's forward / backward (a yardstick the
-              port never calls) over 20 runs after a warm-up, each kernel's
-              bound from its bytes, and the dx kernel's run-to-run max
-              difference (its atomics add in varying order).
+              coordinates.  The multi-grid warp (forward, dgrid, dx) at MFE
+              x[8,16,64,64,4] K1=15 and Generator x[8,16,64,64,32] K1=1, and
+              its forward at the bf16 TPS warp x[8,1,256,256,3] K1=1; the
+              single-grid warp (forward, dgrid, dx) at the Generator shape
+              (gps=1, a deformation-like grid) and the reference-form MFE
+              shape x[8,16,64,64,4] (gps=16 grids from create_sparse_motions
+              on seeded keypoints).  Median CUDA-event times of the kernel,
+              its plain version and F.grid_sample's forward / backward (a
+              yardstick the port never calls, the source repeated per grid)
+              over 20 runs after a warm-up, each kernel's bound from its
+              bytes, and the dx kernels' run-to-run max difference (their
+              atomics add in varying order).  Then the single-grid forward
+              against the multi-grid forward on the same samples at both
+              single-grid shapes: within 1e-5 of max|ref|, and whether they
+              agree bit for bit.
   4. golden   the port's encode_source / drive_frame / frontalize_frame at
               tiny_config on the card, with the JAX weights and outputs of
               tests/data/torch_golden_tiny.npz (tools/make_torch_golden.py).
   5. serve    the full-width ModelConfig() in fp32 (seeded random weights)
               behind the port's HTTP server on 127.0.0.1: 2 sessions, rounds
               of 16 concurrent /drive requests in full batches of 8, one
-              /frontalize; every answer 200 and 256*256*3 bytes; the warp
-              kernel launched exactly twice per batch (MFE + Generator) and
-              its plain version never.  Prints p50/p95 latency and frames/s.
+              /frontalize; every answer 200 and 256*256*3 bytes; per batch
+              the multi-grid forward kernel once (MFE) and the single-grid
+              forward kernel once (Generator), the plain versions never.
+              Prints p50/p95 latency and frames/s.
   6. train_tiny  one tiny_config() training step on the card against the
               same step of the port on the CPU (plain versions), from the
-              same seeded weights, images and TPS parameters: every loss and
-              the gradient of every G and D parameter, held to the CPU step
-              as tests/test_torch_train.py holds the port to JAX.
+              same numpy-seeded weights, images and TPS parameters, in fp32
+              (the CPU step run here) and in bf16 (the CPU step recorded in
+              tests/data/torch_bf16_step_tiny.npz by
+              tools/make_torch_step_golden.py): every loss and the gradient
+              of every G and D parameter, held to the CPU step as
+              tests/test_torch_train.py (fp32) and tests/test_torch_bf16.py
+              (bf16) hold the port to JAX.
   7. train    the full-width ModelConfig() training step, fp32, batch 8,
               seeded weights and teachers, through facevae_tpu_torch.bench:
-              2 warm-up and 5 timed steps; every loss finite; per step the
-              warp forward and both backward kernels launched exactly twice
-              (MFE + Generator), their plain versions never.  Prints the
-              step time, frames/s and peak memory.
+              2 warm-up and 5 timed steps; every loss finite; per step each
+              multi-grid kernel once (MFE) and each single-grid kernel once
+              (Generator), the plain versions never.  Prints the step time,
+              frames/s and peak memory.
+  8. train_bf16  the same step with ModelConfig(compute_dtype="bfloat16"):
+              every loss finite, parameters and Adam state fp32; per step the
+              multi-grid forward 3 times (MFE, Generator, TPS), its dgrid
+              and dx kernels twice, the single-grid kernels and the plain
+              versions never.  Prints the step time, frames/s, peak memory.
 Then a JSON line of kernel results, the card's name and power limit, and the
 last line {"ok": true, "device": {...}}.  There is no CPU fallback: without
 a CUDA device the script fails.
@@ -55,6 +74,7 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
 GOLDEN = ROOT / "tests" / "data" / "torch_golden_tiny.npz"
+BF16_STEP_GOLDEN = ROOT / "tests" / "data" / "torch_bf16_step_tiny.npz"
 KERNELS = {   # name -> (source, the TPU kernel it replaces)
     "warp_fwd": ("facevae_tpu_torch/csrc/warp_fwd.cu",
                  "facevae_tpu/ops/pallas/warp_mm.py:132"),     # _fwd_multi_kernel
@@ -62,21 +82,43 @@ KERNELS = {   # name -> (source, the TPU kernel it replaces)
                        "facevae_tpu/ops/pallas/warp_mm.py:192"),  # _dgrid_multi_kernel
     "warp_bwd_dx": ("facevae_tpu_torch/csrc/warp_bwd.cu",
                     "facevae_tpu/ops/pallas/warp_mm.py:247"),     # _drows_multi_kernel
+    "grid_fwd": ("facevae_tpu_torch/csrc/warp_grid.cu",
+                 "facevae_tpu/ops/pallas/warp_mm.py:358"),     # _fwd_kernel
+    "grid_bwd_dgrid": ("facevae_tpu_torch/csrc/warp_grid.cu",
+                       "facevae_tpu/ops/pallas/warp_mm.py:415"),  # _dgrid_kernel
+    "grid_bwd_dx": ("facevae_tpu_torch/csrc/warp_grid.cu",
+                    "facevae_tpu/ops/pallas/warp_mm.py:435"),     # _drows_kernel
 }
-SITES = (("MFE", 4, 15), ("Generator", 32, 1))      # call site, C, K1 at batch 8
+N_BATCH, VOLUME = 8, (16, 64, 64)     # batch 8, D x H x W of the appearance volume
+ALL, BOTH = ("fwd", "bwd_dgrid", "bwd_dx"), ("float32", "bfloat16")
+# call sites: (site, kernel family, C, K1 or gps, volume, dtypes, halves, in
+# the JSON line).  The "kernels" JSON line sums the fp32 rows of the main
+# paths' sites: MFE and the Generator for the multi-grid kernels (the
+# Generator's runs at bf16), the Generator for the single-grid ones.
+SITES = (("MFE", "warp", 4, 15, VOLUME, BOTH, ALL, True),
+         ("Generator", "warp", 32, 1, VOLUME, BOTH, ALL, True),
+         ("TPS", "warp", 3, 1, (1, 256, 256), ("bfloat16",), ("fwd",), False),
+         ("Generator", "grid", 32, 1, VOLUME, BOTH, ALL, True),
+         ("MFE reference form", "grid", 4, 16, VOLUME, BOTH, ALL, False))
 HBM_BYTES_PER_S = 3.35e12         # H100 SXM
 FP32_FLOPS = 67e12                # H100 SXM, fp32 outside the tensor cores
 # kernel vs plain limits, relative to max|plain|: the forward and dgrid
 # differ only in the order of their fp32 sums (dgrid reads the same bf16
 # values as fp32 in both); dx sums with atomics in varying order (fp32) and
 # rounds each output to bf16 once (bf16)
-KERNEL_TOL = {"warp_fwd": {"float32": 1e-5, "bfloat16": 1e-2},
-              "warp_bwd_dgrid": {"float32": 1e-5, "bfloat16": 1e-5},
-              "warp_bwd_dx": {"float32": 1e-5, "bfloat16": 1e-2}}
-# card vs CPU training step: as tests/test_torch_train.py, within SPREAD x
-# the CPU step's own change under inputs nudged by NUDGE, plus these
+KERNEL_TOL = {"fwd": {"float32": 1e-5, "bfloat16": 1e-2},
+              "bwd_dgrid": {"float32": 1e-5, "bfloat16": 1e-5},
+              "bwd_dx": {"float32": 1e-5, "bfloat16": 1e-2}}
+CROSS_TOL = 1e-5                  # single-grid vs multi-grid forward, same samples
+# card vs CPU training step: fp32 as tests/test_torch_train.py, within
+# SPREAD x the CPU step's own change under inputs nudged by NUDGE, plus these;
+# bf16 as tests/test_torch_bf16.py, within BF16_SPREAD x the bf16 noise the
+# recorded step carries (the CPU's bf16-vs-fp32 difference and its bf16
+# changes under inputs nudged by half a bf16 ulp), plus these
 TRAIN_TOL = {"loss": 1e-4, "grad": 1e-3, "grad_floor": 1e-2}
 SPREAD, NUDGE = 10.0, 2.0 ** -20
+BF16_TRAIN_TOL = {"loss": 1e-3, "grad": 1e-2, "grad_floor": 1e-2}
+BF16_SPREAD, BF16_NUDGE = 3.0, 2.0 ** -9
 TRAIN_STEPS, TRAIN_WARMUP = 5, 2
 # port vs JAX golden, relative to max|ref| (the CPU test's tolerance): fp32
 # through a few conv layers, amplified by the 0.1-temperature soft-argmax
@@ -134,17 +176,17 @@ def phase_build():
         info = kernels.build_info[name]
         print(f"[build] {name} built in {info['seconds']:.2f} s")
         regs = [ln.strip() for ln in info["ptxas"].splitlines() if "registers" in ln]
-        spills = [ln for ln in info["ptxas"].splitlines()
+        spills = [ln.strip() for ln in info["ptxas"].splitlines()
                   if "spill" in ln and not ln.strip().startswith("0 bytes stack frame, 0")]
         print(f"[build]   {len(regs)} entry points; {regs[0] if regs else ''}; "
-              f"{len(spills)} with spills")
+              f"{len(spills)} with spills or a stack frame {spills}")
     print(f"[build] all libraries in {time.perf_counter() - t0:.2f} s (in parallel)")
 
 
 def _coords(N, K1, D, H, W, g):
-    """Pixel coordinates as a motion field makes them (an affine map of the
-    grid plus noise, reaching past the border), with exact integers, the
-    border values and far-out-of-volume probes mixed in."""
+    """Pixel coordinates [3][N,K1,NV] as a motion field makes them (an affine
+    map of the grid plus noise, reaching past the border), with exact
+    integers, the border values and far-out-of-volume probes mixed in."""
     import torch
     dev = "cuda"
     z, y, x = torch.meshgrid(torch.arange(D, device=dev), torch.arange(H, device=dev),
@@ -155,6 +197,14 @@ def _coords(N, K1, D, H, W, g):
     shift = 0.2 * size * (torch.rand(3, N, K1, 1, generator=g, device=dev) - 0.5)
     noise = torch.randn(3, N, K1, base.shape[-1], generator=g, device=dev)
     c = (base - size / 2) * scale + size / 2 + shift + noise
+    return _probes(c, size, g)
+
+
+def _probes(c, size, g):
+    """Pixel coordinates c [3,...] with 10% exact integers, 0.5% the last
+    index and 0.5% far-out, border and +-inf values mixed in."""
+    import torch
+    dev = c.device
     pick = torch.rand(c.shape, generator=g, device=dev)
     c = torch.where(pick < 0.1, torch.round(c), c)                  # exact integers
     probes = torch.tensor([-1e30, -1e6, -1.0, -0.5, 0.0, 1e-3, 1e6, 1e30,
@@ -165,35 +215,61 @@ def _coords(N, K1, D, H, W, g):
     return [c[a].contiguous() for a in range(3)]
 
 
-def _bound_ms(name, N, D, H, W, C, K1, item):
-    """Least time for the kernel's work on an H100: each input read once and
+def _normalized(coords, D, H, W):
+    """Pixel coordinate planes [3][N,K1,NV] -> the normalized grid
+    [N*K1,D,H,W,3] that samples the same points."""
+    import torch
+    N, K1 = coords[0].shape[:2]
+    grid = torch.stack([c * (2.0 / (s - 1)) - 1.0 for c, s in zip(coords, (W, H, D))], -1)
+    return grid.reshape(N * K1, D, H, W, 3).contiguous()
+
+
+def _reference_form_grid(N, K, D, H, W, g):
+    """The reference form's K+1 grids per source [N*(K+1),D,H,W,3]:
+    create_sparse_motions on seeded keypoints and head poses, with the
+    probes mixed in (in pixel units)."""
+    import torch
+    from facevae_tpu_torch.ops import create_sparse_motions
+    from facevae_tpu_torch.ops.geometry import pose_rotation
+    dev = "cuda"
+    kp_s, kp_d = (torch.rand(N, K, 3, generator=g, device=dev) * 1.2 - 0.6 for _ in range(2))
+    Rs, Rd = (pose_rotation(*(torch.rand(N, generator=g, device=dev) - 0.5 for _ in range(3)))
+              for _ in range(2))
+    fs = torch.empty(N, D, H, W, 1, device=dev)                        # shape only
+    motions = create_sparse_motions(fs, kp_s, kp_d, Rs, Rd).reshape(-1, 3)
+    size = torch.tensor([W, H, D], device=dev, dtype=torch.float32).reshape(3, 1)
+    px = (motions.t() + 1.0) * 0.5 * (size - 1)
+    return _normalized([c.reshape(N, K + 1, -1) for c in _probes(px, size, g)], D, H, W)
+
+
+def _bound_ms(half, N, D, H, W, C, K1, item):
+    """Least time for a kernel's work on an H100: each input read once and
     each output written once over 3.35 TB/s, against its fp32 operations
-    (8 corners x (C multiply-adds + weights) per sample) over 67 TFLOP/s."""
+    (8 corners x (C multiply-adds + weights) per sample) over 67 TFLOP/s.
+    Both warp families move the same bytes for the same samples."""
     NV = D * H * W
     vol, coords, samples = N * NV * C * item, 3 * N * K1 * NV * 4, N * NV * K1 * C * item
-    nbytes = {"warp_fwd": vol + coords + samples,
-              "warp_bwd_dgrid": vol + coords + samples + 3 * N * K1 * NV * 4,
-              "warp_bwd_dx": coords + samples + N * NV * C * 4}[name]
+    nbytes = {"fwd": vol + coords + samples,
+              "bwd_dgrid": vol + coords + samples + 3 * N * K1 * NV * 4,
+              "bwd_dx": coords + samples + N * NV * C * 4}[half]
     flops = N * K1 * NV * 8 * (2 * C + 12)
     t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / FP32_FLOPS
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
 
 
-def _library_calls(x, coords, gout):
+def _library_calls(x, grid, gout):
     """F.grid_sample (3D, bilinear, zeros, align_corners=True) on the same
-    samples, NCDHW with the source repeated per grid: forward, and its
-    backward for the grid alone and for the source alone."""
+    samples: x [N,D,H,W,C] repeated per grid as NCDHW, the normalized grid
+    [G,D,H,W,3], the cotangent [G,D,H,W,C]; its forward, and its backward
+    for the grid alone and for the source alone."""
     import torch
     import torch.nn.functional as F
     N, D, H, W, C = x.shape
-    K1 = coords[0].shape[1]
-    src = (x.float().permute(0, 4, 1, 2, 3)[:, None].expand(N, K1, C, D, H, W)
-           .reshape(N * K1, C, D, H, W).contiguous().requires_grad_())
-    grid = torch.stack([torch.nan_to_num(c, posinf=1e6, neginf=-1e6) * (2.0 / (s - 1)) - 1.0
-                        for c, s in zip(coords, (W, H, D))], -1)
-    grid = grid.reshape(N * K1, D, H, W, 3).requires_grad_()
-    g = (gout.float().reshape(N, D, H, W, K1, C).permute(0, 4, 5, 1, 2, 3)
-         .reshape(N * K1, C, D, H, W).contiguous())
+    G = grid.shape[0]
+    src = (x.float().permute(0, 4, 1, 2, 3)[:, None].expand(N, G // N, C, D, H, W)
+           .reshape(G, C, D, H, W).contiguous().requires_grad_())
+    grid = torch.nan_to_num(grid, posinf=1e6, neginf=-1e6).requires_grad_()
+    g = gout.float().permute(0, 4, 1, 2, 3).contiguous()
     out = F.grid_sample(src, grid, mode="bilinear", padding_mode="zeros", align_corners=True)
 
     @torch.no_grad()
@@ -201,66 +277,123 @@ def _library_calls(x, coords, gout):
         return F.grid_sample(src, grid, mode="bilinear", padding_mode="zeros",
                              align_corners=True)
 
-    return {"warp_fwd": fwd,
-            "warp_bwd_dgrid": lambda: torch.autograd.grad(out, grid, g, retain_graph=True),
-            "warp_bwd_dx": lambda: torch.autograd.grad(out, src, g, retain_graph=True)}
+    return {"fwd": fwd,
+            "bwd_dgrid": lambda: torch.autograd.grad(out, grid, g, retain_graph=True),
+            "bwd_dx": lambda: torch.autograd.grad(out, src, g, retain_graph=True)}
+
+
+def _site_calls(family, x, coords, grid, gout, gps, spatial):
+    """name -> (kernel call, plain call) of one site's kernels."""
+    from facevae_tpu_torch.ops import fast_warp as fw
+    if family == "warp":
+        return {
+            "warp_fwd": (lambda: fw.warp_multi_pixel_cuda(x, *coords, spatial),
+                         lambda: fw.warp_multi_pixel_plain(x, *coords, spatial)),
+            "warp_bwd_dgrid": (
+                lambda: fw.warp_multi_pixel_bwd_cuda(x, *coords, gout, spatial, False)[1],
+                lambda: fw.warp_multi_pixel_bwd_plain(x, *coords, gout, spatial, False)[1]),
+            "warp_bwd_dx": (
+                lambda: fw.warp_multi_pixel_bwd_cuda(x, *coords, gout, spatial,
+                                                     need_dgrid=False)[0],
+                lambda: fw.warp_multi_pixel_bwd_plain(x, *coords, gout, spatial,
+                                                      need_dgrid=False)[0])}
+    return {
+        "grid_fwd": (lambda: fw.grid_sample_3d_cuda(x, grid, gps),
+                     lambda: fw.grid_sample_3d_plain(x, grid, gps)),
+        "grid_bwd_dgrid": (lambda: fw.grid_sample_3d_bwd_cuda(x, grid, gout, gps, False)[1],
+                           lambda: fw.grid_sample_3d_bwd_plain(x, grid, gout, gps, False)[1]),
+        "grid_bwd_dx": (lambda: fw.grid_sample_3d_bwd_cuda(x, grid, gout, gps,
+                                                           need_dgrid=False)[0],
+                        lambda: fw.grid_sample_3d_bwd_plain(x, grid, gout, gps,
+                                                            need_dgrid=False)[0])}
+
+
+def _cross_check(x, grid, gps):
+    """The single-grid forward against the multi-grid forward on the same
+    samples (the pixel coordinates unnormalized as the single-grid kernel
+    does): (max|err|, max|ref|, bit-equal)."""
+    import torch
+    from facevae_tpu_torch.ops import fast_warp as fw
+    N, D, H, W, C = x.shape
+    single = fw.grid_sample_3d_cuda(x, grid, gps)
+    coords = [((grid[..., a] + 1.0) * 0.5 * (s - 1)).reshape(N, gps, -1).contiguous()
+              for a, s in enumerate((W, H, D))]
+    multi = fw.warp_multi_pixel_cuda(x, *coords, tuple(grid.shape[1:4]))
+    multi = multi.reshape(N, -1, gps, C).permute(0, 2, 1, 3).reshape(single.shape)
+    torch.cuda.synchronize()
+    return ((single - multi).abs().max().item(), multi.abs().max().item(),
+            bool(torch.equal(single, multi)))
 
 
 def phase_kernels():
     import torch
-    from facevae_tpu_torch.ops import fast_warp as fw
     g = torch.Generator(device="cuda").manual_seed(0)
-    rows = []
-    N, D, H, W = 8, 16, 64, 64
-    for site, C, K1 in SITES:
-        coords = _coords(N, K1, D, H, W, g)
+    rows, cross = [], []
+    N = N_BATCH
+    for site, family, C, K1, (D, H, W), dtypes, halves, in_json in SITES:
         spatial = (D, H, W)
-        for dtype in (torch.float32, torch.bfloat16):
-            dname = str(dtype).split(".")[-1]
+        if site == "MFE reference form":
+            grid = _reference_form_grid(N, K1 - 1, D, H, W, g)
+            coords = None
+        else:
+            coords = _coords(N, K1, D, H, W, g)
+            grid = None
+            if site == "TPS":                      # a D=1 frame: z is exactly 0
+                coords[2] = torch.zeros_like(coords[2])
+            else:                                  # the same samples, normalized
+                grid = _normalized(coords, D, H, W)
+        for dname in dtypes:
+            dtype = getattr(torch, dname)
             x = torch.randn(N, D, H, W, C, generator=g, device="cuda").to(dtype)
-            gout = torch.randn(N, D, H, W, K1 * C, generator=g, device="cuda").to(dtype)
-            calls = {
-                "warp_fwd": (lambda: fw.warp_multi_pixel_cuda(x, *coords, spatial),
-                             lambda: fw.warp_multi_pixel_plain(x, *coords, spatial)),
-                "warp_bwd_dgrid": (
-                    lambda: fw.warp_multi_pixel_bwd_cuda(x, *coords, gout, spatial, False)[1],
-                    lambda: fw.warp_multi_pixel_bwd_plain(x, *coords, gout, spatial, False)[1]),
-                "warp_bwd_dx": (
-                    lambda: fw.warp_multi_pixel_bwd_cuda(x, *coords, gout, spatial,
-                                                         need_dgrid=False)[0],
-                    lambda: fw.warp_multi_pixel_bwd_plain(x, *coords, gout, spatial,
-                                                          need_dgrid=False)[0])}
-            library = _library_calls(x, coords, gout) if dtype == torch.float32 else {}
+            gout_gm = torch.randn(N * K1, D, H, W, C, generator=g, device="cuda").to(dtype)
+            # the multi-grid ops take the cotangent k-major [N,D,H,W,K1*C]
+            gout = (gout_gm if family == "grid" else
+                    gout_gm.reshape(N, K1, -1, C).permute(0, 2, 1, 3).reshape(N, D, H, W, K1 * C))
+            calls = _site_calls(family, x, coords, grid, gout, K1, spatial)
+            library = _library_calls(x, grid, gout_gm) if dname == "float32" else {}
             for name, (kernel, plain) in calls.items():
+                half = name.split("_", 1)[1]
+                if half not in halves:
+                    continue
                 out, ref = kernel(), plain()
                 torch.cuda.synchronize()
                 out = out if isinstance(out, tuple) else (out,)
                 ref = ref if isinstance(ref, tuple) else (ref,)
-                check(all(bool(torch.isfinite(o).all()) for o in out),
-                      f"{name} {site} {dname}: non-finite output")
+                what = f"{name} {site} {dname}"
+                check(all(bool(torch.isfinite(o).all()) for o in out), f"{what}: non-finite output")
                 check(all(o.shape == r.shape for o, r in zip(out, ref)),
-                      f"{name} {site} {dname}: shapes {[tuple(o.shape) for o in out]}")
+                      f"{what}: shapes {[tuple(o.shape) for o in out]}")
                 err = max((o.float() - r.float()).abs().max().item() for o, r in zip(out, ref))
                 scale = max(r.float().abs().max().item() for r in ref)
-                row = dict(name=name, site=site, dtype=dname, C=C, K1=K1, err=err, scale=scale,
-                           tol=KERNEL_TOL[name][dname] * scale, ms=cuda_ms(kernel),
-                           plain_ms=cuda_ms(plain),
-                           library_ms=cuda_ms(library[name]) if name in library else None)
-                row["bound_ms"], row["bound_by"] = _bound_ms(name, N, D, H, W, C, K1,
+                row = dict(name=name, site=site, dtype=dname, C=C, K1=K1, shape=(N, D, H, W, C),
+                           err=err, scale=scale, tol=KERNEL_TOL[half][dname] * scale,
+                           ms=cuda_ms(kernel), plain_ms=cuda_ms(plain), in_json=in_json,
+                           library_ms=cuda_ms(library[half]) if half in library else None)
+                row["bound_ms"], row["bound_by"] = _bound_ms(half, N, D, H, W, C, K1,
                                                              x.element_size())
-                if name == "warp_bwd_dx":
+                if half == "bwd_dx":
                     row["rerun_diff"] = (kernel().float() - out[0].float()).abs().max().item()
                 rows.append(row)
                 lib = "" if row["library_ms"] is None else f", F.grid_sample {row['library_ms']:.4f}"
                 rerun = (f"; run-to-run max|diff| {row['rerun_diff']:.3e}"
                          if "rerun_diff" in row else "")
-                print(f"[kernels] {name} {site} x[{N},{D},{H},{W},{C}] K1={K1} {dname}: "
+                k = "gps" if family == "grid" else "K1"
+                print(f"[kernels] {name} {site} x[{N},{D},{H},{W},{C}] {k}={K1} {dname}: "
                       f"max|err| {err:.3e} (limit {row['tol']:.3e}, max|ref| {scale:.3f}); "
                       f"kernel {row['ms']:.4f} ms, plain {row['plain_ms']:.4f}{lib}, "
                       f"bound {row['bound_ms']:.4f} ms ({row['bound_by']}){rerun}")
+            if family == "grid" and dname == "float32":
+                err, scale, same = _cross_check(x, grid, K1)
+                cross.append((site, err, scale, same))
+                print(f"[kernels] single-grid vs multi-grid forward, {site} gps=K1={K1} fp32: "
+                      f"max|err| {err:.3e} (limit {CROSS_TOL * scale:.3e}); "
+                      f"bit for bit: {'yes' if same else 'no'}")
     for r in rows:
         check(r["err"] <= r["tol"], f"{r['name']} {r['site']} {r['dtype']}: "
                                     f"{r['err']:.3e} > {r['tol']:.3e}")
+    for site, err, scale, _ in cross:
+        check(err <= CROSS_TOL * scale, f"single-grid vs multi-grid forward at {site}: "
+                                        f"{err:.3e} > {CROSS_TOL * scale:.3e}")
     return rows
 
 
@@ -383,9 +516,10 @@ def phase_serve(card):
         counts = dict(fast_warp.launches)
         batches = engine.stats["batches"]
         print(f"[serve] engine {engine.stats}; warp launches {counts}")
-        check(counts["warp_fwd"] == 2 * batches and counts["warp_fwd_plain"] == 0,
-              f"warp launches {counts} for {batches} batches: expected "
-              f"{2 * batches} kernel, 0 plain")
+        want = {**dict.fromkeys(counts, 0), "warp_fwd": batches, "grid_fwd": batches}
+        check(counts == want, f"warp launches {counts} for {batches} batches: expected "
+                              f"{want} (MFE's multi-grid and the Generator's single-grid "
+                              "forward once per batch, no plain version)")
     finally:
         server.shutdown()
         server.server_close()
@@ -410,95 +544,192 @@ def phase_serve(card):
     return counts
 
 
-def _held(actual, ref, nudged, rel, scale=None):
-    """(err, limit) of the card's value against the CPU step's: limit =
-    SPREAD x the CPU step's own change under nudged inputs + rel x scale."""
-    actual, ref, nudged = (t.detach().double().cpu() for t in (actual, ref, nudged))
-    err = (actual - ref).abs().max().item()
-    scale = ref.abs().max().item() if scale is None else scale
-    return err, SPREAD * (nudged - ref).abs().max().item() + rel * scale
+# per training step: fp32 runs MFE through the multi-grid kernels and the
+# Generator through the single-grid ones; bf16 runs MFE, the Generator and
+# the TPS warp (forward only) through the multi-grid kernels
+STEP_LAUNCHES = {"float32": {"warp_fwd": 1, "warp_bwd_dgrid": 1, "warp_bwd_dx": 1,
+                             "grid_fwd": 1, "grid_bwd_dgrid": 1, "grid_bwd_dx": 1},
+                 "bfloat16": {"warp_fwd": 3, "warp_bwd_dgrid": 2, "warp_bwd_dx": 2}}
 
 
-def _ratio(err, lim):
-    return err / lim if lim > 0 else (0.0 if err == 0 else float("inf"))
+def _want(counts, dtype, steps):
+    return {**dict.fromkeys(counts, 0),
+            **{k: steps * v for k, v in STEP_LAUNCHES[dtype].items()}}
 
 
-def phase_train_tiny():
-    """One tiny_config() step on the card against the port's CPU step."""
-    import copy
+def numpy_weights(nets, seed):
+    """Fill every parameter and buffer of ``nets`` (dict order, then
+    state_dict order) from numpy's RandomState(seed), which draws the same
+    numbers on every machine and torch version: kernels and biases
+    U(-1/sqrt(fan_in), +), norm scales U(0.8, 1.2), norm biases and running
+    means U(-0.1, 0.1), running variances U(0.5, 1.5), spectral u, v by 20
+    power iterations on the filled kernel."""
     import numpy as np
+    import torch
+    rs = np.random.RandomState(seed)
+    for net in nets.values():
+        sd = net.state_dict()
+        vals = {}
+        for key, t in sd.items():
+            stem, leaf = key.rpartition(".")[::2]
+            kernel = sd.get(f"{stem}.weight" if stem else "weight")
+            if leaf in ("weight_u", "weight_v"):
+                continue
+            if t.dim() >= 2 or (leaf == "bias" and kernel is not None and kernel.dim() >= 2):
+                fan_in = kernel[0].numel()
+                vals[key] = rs.uniform(-1, 1, tuple(t.shape)) / np.sqrt(fan_in)
+            elif leaf == "weight":
+                vals[key] = rs.uniform(0.8, 1.2, tuple(t.shape))
+            elif leaf in ("bias", "running_mean"):
+                vals[key] = rs.uniform(-0.1, 0.1, tuple(t.shape))
+            elif leaf == "running_var":
+                vals[key] = rs.uniform(0.5, 1.5, tuple(t.shape))
+            else:
+                raise ValueError(f"numpy_weights: no rule for {key}")
+        for key in sd:
+            stem, leaf = key.rpartition(".")[::2]
+            if leaf == "weight_u":
+                w = vals[f"{stem}.weight"].reshape(sd[key].shape[0], -1)
+                u = rs.randn(w.shape[0])
+                for _ in range(20):
+                    v = w.T @ u
+                    v /= np.linalg.norm(v)
+                    u = w @ v
+                    u /= np.linalg.norm(u)
+                vals[key], vals[f"{stem}.weight_v"] = u, v
+        with torch.no_grad():
+            for key, t in sd.items():
+                t.copy_(torch.from_numpy(np.asarray(vals[key], np.float32)))
+    return nets
+
+
+def tiny_step_inputs(seed=0):
+    """The images [4][2,64,64,3] and TPS parameters of the tiny step, from
+    numpy: (RandomState after the draws, images, (theta, control points,
+    control params))."""
+    import numpy as np
+    rs = np.random.RandomState(seed)
+    batch = [rs.rand(2, 64, 64, 3).astype(np.float32) for _ in range(4)]
+    y, x = np.meshgrid(np.linspace(-1, 1, 5), np.linspace(-1, 1, 5), indexing="ij")
+    tp = ((np.eye(2, 3)[None] + 0.05 * rs.randn(2, 2, 3)).astype(np.float32),
+          np.stack([x, y], -1).reshape(1, 25, 2).astype(np.float32),
+          (0.005 * rs.randn(2, 1, 25)).astype(np.float32))
+    return rs, batch, tp
+
+
+def tiny_step(device, images, dtype, tp, seed=0):
+    """One tiny_config(compute_dtype=dtype) training step of the port on
+    ``device`` from numpy_weights(seed): ({loss: value}, {net: {param:
+    gradient}}), numpy."""
     import torch
     from facevae_tpu_torch.config import tiny_config
     from facevae_tpu_torch.models import D_MODEL_NAMES, G_MODEL_NAMES
-    from facevae_tpu_torch.ops import fast_warp
-    from facevae_tpu_torch.ops.tps import TransformParams, random_transform_params
+    from facevae_tpu_torch.ops.tps import TransformParams
     from facevae_tpu_torch.train import build_all_modules, create_train_state, train_step
-    cfg = tiny_config()
-    weights = {k: copy.deepcopy(m.state_dict())
-               for k, m in build_all_modules(cfg, "cpu").items()}
-    rs = np.random.RandomState(0)
-    batch = [rs.rand(2, 64, 64, 3).astype(np.float32) for _ in range(4)]
-    nudged = [(b * (1 + NUDGE * rs.randn(*b.shape))).astype(np.float32) for b in batch]
-    tp = random_transform_params(torch.Generator().manual_seed(0), 2)
+    cfg = tiny_config(compute_dtype=dtype)
+    nets = numpy_weights(build_all_modules(cfg, device), seed)
+    state = create_train_state(cfg, device, nets)
+    out = train_step(state, [torch.from_numpy(b).to(device) for b in images],
+                     transform_params=TransformParams(*(torch.from_numpy(a).to(device)
+                                                        for a in tp)))
+    losses = {k: float(v) for k, v in {**out["losses_g"], **out["losses_d"]}.items()}
+    grads = {n: {k: p.grad.detach().cpu().numpy() for k, p in state.nets[n].named_parameters()}
+             for n in G_MODEL_NAMES + D_MODEL_NAMES}
+    return losses, grads
 
-    def step(device, images):
-        nets = build_all_modules(cfg, device)
-        for k, m in nets.items():
-            m.load_state_dict(weights[k])
-        state = create_train_state(cfg, device, nets)
-        out = train_step(state, [torch.from_numpy(b).to(device) for b in images],
-                         transform_params=TransformParams(*(t.to(device) for t in tp)))
-        grads = {n: {k: p.grad for k, p in state.nets[n].named_parameters()}
-                 for n in G_MODEL_NAMES + D_MODEL_NAMES}
-        return {**out["losses_g"], **out["losses_d"]}, grads
 
-    fast_warp.reset_launch_counts()
-    card_losses, card_grads = step("cuda", batch)
-    torch.cuda.synchronize()
-    launches = dict(fast_warp.launches)
-    (cpu_losses, cpu_grads), (nud_losses, nud_grads) = step("cpu", batch), step("cpu", nudged)
+def held_step(losses, grads, ref_losses, ref_grads, noise, factor, tol):
+    """Hold a step's losses and gradients to a reference step's: each within
+    factor x its rounding noise (noise(kind, name, key) -> a max distance)
+    + tol's floor.  Returns (failures, worst err/limit)."""
+    import numpy as np
     bad, worst = [], 0.0
-    for k, v in card_losses.items():
-        err, lim = _held(v, cpu_losses[k], nud_losses[k], TRAIN_TOL["loss"])
-        worst = max(worst, _ratio(err, lim))
+
+    def hold(what, a, r, n, rel, scale):
+        nonlocal worst
+        err = _distance(a, r)
+        lim = factor * n + rel * scale
+        worst = max(worst, err / lim if lim > 0 else (0.0 if err == 0 else float("inf")))
         if not err <= lim:
-            bad.append(f"loss {k}: {err:.3e} > {lim:.3e}")
-    for n, grads in card_grads.items():
-        top = max(g.abs().max().item() for g in cpu_grads[n].values())
-        for k, gr in grads.items():
-            ref = cpu_grads[n][k]
-            err, lim = _held(gr, ref, nud_grads[n][k], TRAIN_TOL["grad"],
-                             max(ref.abs().max().item(), TRAIN_TOL["grad_floor"] * top))
-            worst = max(worst, _ratio(err, lim))
-            if not err <= lim:
-                bad.append(f"{n}.{k} grad: {err:.3e} > {lim:.3e}")
-    print(f"[train_tiny] card vs CPU step, tiny_config batch 2: losses "
-          + ", ".join(f"{k} {float(v):.5f}/{float(cpu_losses[k]):.5f}"
-                      for k, v in card_losses.items()))
-    print(f"[train_tiny] {sum(len(g) for g in card_grads.values())} gradient leaves and "
-          f"{len(card_losses)} losses held; worst err/limit {worst:.3f}; card launches {launches}")
-    check(not bad, f"card step differs from the CPU step: {bad[:8]}")
-    check(launches == {"warp_fwd": 2, "warp_fwd_plain": 0, "warp_bwd_dgrid": 2,
-                       "warp_bwd_dgrid_plain": 0, "warp_bwd_dx": 2, "warp_bwd_dx_plain": 0},
-          f"tiny step launches {launches}")
+            bad.append(f"{what}: {err:.3e} > {lim:.3e}")
+
+    for k, v in losses.items():
+        hold(f"loss {k}", v, ref_losses[k], noise("loss", k, None), tol["loss"],
+             abs(ref_losses[k]))
+    for n, gs in grads.items():
+        top = max(float(np.abs(g).max()) for g in ref_grads[n].values())
+        for k, g in gs.items():
+            r = ref_grads[n][k]
+            hold(f"{n}.{k} grad", g, r, noise("grad", n, k), tol["grad"],
+                 max(float(np.abs(r).max()), tol["grad_floor"] * top))
+    return bad, worst
 
 
-def phase_train(card):
+def _distance(a, b):
+    import numpy as np
+    return float(np.abs(np.asarray(a, np.float64) - np.asarray(b, np.float64)).max())
+
+
+def phase_train_tiny():
+    """One tiny_config() step on the card against the port's step on the
+    CPU, from the same numpy weights, images and TPS parameters: fp32
+    against a CPU step here; bf16 against the CPU bf16 step recorded in
+    tests/data/torch_bf16_step_tiny.npz (tools/make_torch_step_golden.py:
+    run on the card's machine, two CPU bf16 steps did not finish in 20
+    minutes)."""
+    import numpy as np
+    import torch
+    from facevae_tpu_torch.ops import fast_warp
+    rs, batch, tp = tiny_step_inputs()
+    nudged = [(b * (1 + NUDGE * rs.randn(*b.shape))).astype(np.float32) for b in batch]
+    cpu, cpu_nudged = tiny_step("cpu", batch, "float32", tp), tiny_step("cpu", nudged, "float32", tp)
+    z = np.load(BF16_STEP_GOLDEN)
+    gold = ({k[len("loss/"):]: float(z[k]) for k in z.files if k.startswith("loss/")},
+            {})
+    for k in z.files:
+        if k.startswith("grad/"):
+            _, n, key = k.split("/", 2)
+            gold[1].setdefault(n, {})[key] = z[k]
+    refs = {
+        "float32": (cpu, lambda kind, n, k: (_distance(cpu_nudged[0][n], cpu[0][n]) if kind == "loss"
+                                              else _distance(cpu_nudged[1][n][k], cpu[1][n][k])),
+                    SPREAD, TRAIN_TOL),
+        "bfloat16": (gold, lambda kind, n, k: float(z[f"noise/loss/{n}" if kind == "loss"
+                                                       else f"noise/grad/{n}/{k}"]),
+                     BF16_SPREAD, BF16_TRAIN_TOL)}
+    for dtype, ((ref_losses, ref_grads), noise, factor, tol) in refs.items():
+        fast_warp.reset_launch_counts()
+        losses, grads = tiny_step("cuda", batch, dtype, tp)
+        torch.cuda.synchronize()
+        launches = dict(fast_warp.launches)
+        bad, worst = held_step(losses, grads, ref_losses, ref_grads, noise, factor, tol)
+        print(f"[train_tiny] {dtype}: card vs CPU step, tiny_config batch 2: losses "
+              + ", ".join(f"{k} {v:.5f}/{ref_losses[k]:.5f}" for k, v in losses.items()))
+        print(f"[train_tiny] {dtype}: {sum(len(g) for g in grads.values())} gradient leaves "
+              f"and {len(losses)} losses held; worst err/limit {worst:.3f}; "
+              f"card launches {launches}")
+        check(not bad, f"{dtype} card step differs from the CPU step: {bad[:8]}")
+        check(launches == _want(launches, dtype, 1), f"tiny {dtype} step launches {launches}")
+
+
+def _train(card, dtype):
     """The full-width training step through the bench's function."""
     from facevae_tpu_torch import bench
-    r = bench.run(batch_size=8, steps=TRAIN_STEPS, warmup=TRAIN_WARMUP)
+    tag = "train" if dtype == "float32" else "train_bf16"
+    r = bench.run(batch_size=N_BATCH, steps=TRAIN_STEPS, warmup=TRAIN_WARMUP, dtype=dtype)
     bad = [k for k, v in r["losses"].items() if not abs(v) < float("inf")]
     check(not bad, f"non-finite losses {bad}: {r['losses']}")
-    n = TRAIN_STEPS
-    want = {"warp_fwd": 2 * n, "warp_fwd_plain": 0, "warp_bwd_dgrid": 2 * n,
-            "warp_bwd_dgrid_plain": 0, "warp_bwd_dx": 2 * n, "warp_bwd_dx_plain": 0}
-    check(r["launches"] == want, f"{n} training steps launched {r['launches']}, want {want}")
-    print(f"[train] {card}: {r['config']}: step {r['step_ms_median']:.1f} ms median "
+    check(r["param_dtypes"] == r["adam_dtypes"] == ["torch.float32"],
+          f"parameters {r['param_dtypes']}, Adam state {r['adam_dtypes']}: want fp32")
+    want = _want(r["launches"], dtype, TRAIN_STEPS)
+    check(r["launches"] == want,
+          f"{TRAIN_STEPS} {dtype} training steps launched {r['launches']}, want {want}")
+    print(f"[{tag}] {card}: {r['config']}: step {r['step_ms_median']:.1f} ms median "
           f"({', '.join(f'{t:.1f}' for t in r['step_ms'])}), {r['frames_per_s']:.3f} frames/s, "
           f"peak memory {r['peak_memory_bytes'] / 2 ** 30:.2f} GiB, "
-          f"build + state {r['build_s']:.1f} s")
-    print(f"[train] losses {json.dumps({k: round(v, 5) for k, v in r['losses'].items()})}; "
-          f"warp launches over {n} steps {r['launches']}")
+          f"build + state {r['build_s']:.1f} s; parameters and Adam state fp32")
+    print(f"[{tag}] losses {json.dumps({k: round(v, 5) for k, v in r['losses'].items()})}; "
+          f"warp launches over {TRAIN_STEPS} steps {r['launches']}")
     return r["launches"]
 
 
@@ -517,37 +748,37 @@ def main() -> int:
         print(f"FAIL: run from the root of a checkout ({e})")
         return 1
     t_all = time.perf_counter()
-    phase_s = {}
+    phase_s, paths = {}, {}
     try:
         card = phase_device()
         for name, fn in (("build", phase_build), ("kernels", phase_kernels),
                          ("golden", phase_golden), ("serve", lambda: phase_serve(card)),
-                         ("train_tiny", phase_train_tiny), ("train", lambda: phase_train(card))):
+                         ("train_tiny", phase_train_tiny),
+                         ("train", lambda: _train(card, "float32")),
+                         ("train_bf16", lambda: _train(card, "bfloat16"))):
             t0 = time.perf_counter()
             out = fn()
             phase_s[name] = round(time.perf_counter() - t0, 1)
             if name == "kernels":
                 rows = out
-            elif name == "serve":
-                serve_launches = out
-            elif name == "train":
-                train_launches = out
+            elif name in ("serve", "train", "train_bf16"):
+                paths[name] = out                  # each main path's launch counts
     except PhaseError as e:
         print(f"FAIL: {e}", flush=True)
         return 1
     kernels = []
     for name, (source, replaces) in KERNELS.items():
-        fp32 = [r for r in rows if r["name"] == name and r["dtype"] == "float32"]
-        # one step's calls of the kernel: the MFE site + the Generator site (fp32)
+        # the kernel's fp32 calls at the main paths' sites (SITES)
+        fp32 = [r for r in rows if r["name"] == name and r["dtype"] == "float32" and r["in_json"]]
         kernels.append({
             "name": name, "route": "cuda", "source": source, "replaces": replaces,
-            "launches": train_launches[name],
-            "launches_by_path": {"serve": serve_launches.get(name, 0),
-                                 "train": train_launches[name]},
+            "launches": sum(p[name] for p in paths.values()),
+            "launches_by_path": {k: p[name] for k, p in paths.items()},
             "max_abs_err": max(r["err"] for r in fp32),
             "ms": sum(r["ms"] for r in fp32), "plain_ms": sum(r["plain_ms"] for r in fp32),
             "bound_ms": sum(r["bound_ms"] for r in fp32), "bound_by": fp32[0]["bound_by"],
-            "library_ms": sum(r["library_ms"] for r in fp32)})
+            "library_ms": sum(r["library_ms"] for r in fp32),
+            "sites": [r["site"] for r in fp32]})
     print(json.dumps({"kernels": kernels}))
     print(f"[done] {time.perf_counter() - t_all:.1f} s; phases {json.dumps(phase_s)}")
     print(smi())

@@ -3,12 +3,13 @@ bench.py):
 
     python -m facevae_tpu_torch.bench [batch] [steps] [dtype]
 
-runs the full G+D step of ModelConfig() (256x256, K=15, D=16, C=32) on
-seeded random weights, teachers and images, fp32 with TF32 off, and prints
-one JSON line: {"metric": "train_frames_per_sec_per_chip", "config", "value",
-"unit", "card", ...}.  Defaults: batch 8, 10 timed steps after 2 warm-up
-steps, float32.  bfloat16 raises NotImplementedError: the bf16 step is not
-ported.  There is no CPU fallback: it needs a CUDA device.
+runs the full G+D step of ModelConfig(compute_dtype=dtype) (256x256, K=15,
+D=16, C=32) on seeded random weights, teachers and images, with TF32 off,
+and prints one JSON line: {"metric": "train_frames_per_sec_per_chip",
+"config", "dtype", "value", "unit", "card", ...}.  dtype is float32 (the
+default) or bfloat16 (the conv stacks in bf16, parameters and optimizer
+state fp32).  Defaults: batch 8, 10 timed steps after 2 warm-up steps.
+There is no CPU fallback: it needs a CUDA device.
 """
 from __future__ import annotations
 
@@ -23,6 +24,7 @@ import torch
 from facevae_tpu_torch.config import Config, ModelConfig
 from facevae_tpu_torch.ops import fast_warp
 from facevae_tpu_torch.train import create_train_state, train_step
+from facevae_tpu_torch.train.objective import compute_dtype
 
 
 def card_line() -> str:
@@ -36,15 +38,14 @@ def card_line() -> str:
 def run(batch_size: int = 8, steps: int = 10, dtype: str = "float32",
         warmup: int = 2) -> dict:
     """Train ``warmup`` + ``steps`` steps on the card; returns the timings,
-    peak memory, the last step's losses and the warp launches of the timed
-    steps."""
-    if dtype != "float32":
-        raise NotImplementedError(f"the port's training step runs float32 only, not {dtype!r}: "
-                                  "the bf16 step is not ported (ROADMAP Queue 1)")
+    peak memory, the last step's losses, the warp launches of the timed
+    steps and the dtypes the parameters and the Adam state hold after
+    them."""
     if not torch.cuda.is_available():
         raise RuntimeError("the training bench measures a CUDA device; none is available")
     device = torch.device("cuda")
     cfg = Config(model=ModelConfig(compute_dtype=dtype))
+    compute_dtype(cfg)                                   # refuses an unknown dtype
     size = cfg.model.image_size
     torch.cuda.reset_peak_memory_stats(device)
     t0 = time.perf_counter()
@@ -66,12 +67,17 @@ def run(batch_size: int = 8, steps: int = 10, dtype: str = "float32",
         step_ms.append((time.perf_counter() - t0) * 1e3)
     launches = dict(fast_warp.launches)
     losses = {k: float(v) for k, v in {**out["losses_g"], **out["losses_d"]}.items()}
+    adam = [v for opt in (state.g_opt, state.d_opt) for st in opt.state.values()
+            for v in st.values() if v.dim() > 0]
     return {"config": f"{size}x{size} full model, batch {batch_size}, {dtype}",
-            "batch": batch_size, "steps": steps, "step_ms": step_ms,
+            "dtype": dtype, "batch": batch_size, "steps": steps, "step_ms": step_ms,
             "step_ms_median": statistics.median(step_ms),
             "frames_per_s": batch_size * steps / (sum(step_ms) / 1e3),
             "peak_memory_bytes": torch.cuda.max_memory_allocated(device),
-            "build_s": build_s, "losses": losses, "launches": launches}
+            "build_s": build_s, "losses": losses, "launches": launches,
+            "param_dtypes": sorted({str(p.dtype) for m in state.nets.values()
+                                    for p in m.parameters()}),
+            "adam_dtypes": sorted({str(v.dtype) for v in adam})}
 
 
 def main(argv=None):
@@ -84,7 +90,7 @@ def main(argv=None):
     if bad:
         raise SystemExit(f"non-finite losses {bad}: {r['losses']}")
     print(json.dumps({
-        "metric": "train_frames_per_sec_per_chip", "config": r["config"],
+        "metric": "train_frames_per_sec_per_chip", "config": r["config"], "dtype": r["dtype"],
         "value": r["frames_per_s"], "unit": "frames/s",
         "card": card_line(), "device": torch.cuda.get_device_name(0),
         "step_ms_median": r["step_ms_median"],

@@ -47,55 +47,11 @@
 // owns its three outputs (no atomics).  The dx kernel adds into fp32 with
 // atomicAdd on float4 / float2 where the vector allows it (sm_90), so the
 // order of the sums, and the last bits of dx, vary from run to run.
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
+#include "warp_common.cuh"
 
 namespace {
 
-constexpr int kThreads = 256;
-
-__device__ __forceinline__ float to_float(float v) { return v; }
-__device__ __forceinline__ float to_float(__nv_bfloat16 v) { return __bfloat162float(v); }
-
-template <typename T, int CPT>
-struct alignas(sizeof(T) * CPT) Pack {
-  T v[CPT];
-};
-
-// dst[0:CPT] += v[0:CPT] with the widest vector atomics the alignment allows
-// (dst is CPT-float aligned: the caller's offsets are multiples of CPT).
-template <int CPT>
-__device__ __forceinline__ void atomic_add_vec(float* dst, const float* v) {
-#if defined(__CUDA_ARCH__) && __CUDA_ARCH__ >= 900
-  if constexpr (CPT % 4 == 0) {
-#pragma unroll
-    for (int i = 0; i < CPT; i += 4)
-      atomicAdd(reinterpret_cast<float4*>(dst + i), make_float4(v[i], v[i + 1], v[i + 2], v[i + 3]));
-    return;
-  } else if constexpr (CPT % 2 == 0) {
-#pragma unroll
-    for (int i = 0; i < CPT; i += 2)
-      atomicAdd(reinterpret_cast<float2*>(dst + i), make_float2(v[i], v[i + 1]));
-    return;
-  }
-#endif
-#pragma unroll
-  for (int i = 0; i < CPT; ++i) atomicAdd(dst + i, v[i]);
-}
-
-struct Axis {
-  float f, t;  // floor(g), g - floor(g)
-};
-
-__device__ __forceinline__ Axis axis(float g) {
-  const float f = floorf(g);
-  return {f, g - f};
-}
-
-// corner j = f + d lies in [0, size-1]; written as !(...) so NaN / inf fail
-__device__ __forceinline__ bool inside(float j, int size) {
-  return j >= 0.f && j <= (float)(size - 1);
-}
+using namespace facevae_warp;
 
 template <typename T, int CPT>
 __global__ void __launch_bounds__(kThreads)
@@ -224,54 +180,18 @@ extern "C" int facevae_warp_bwd_dgrid(const void* x, const float* gx, const floa
                                       float* dgy, float* dgz, int N, int D, int H, int W,
                                       int C, int K1, int NV, int dtype, int cpt,
                                       void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-#define FACEVAE_DGRID(T, P) \
-  launch_dgrid<T, P>(x, gx, gy, gz, gout, dgx, dgy, dgz, N, D, H, W, C, K1, NV, s)
-  if (dtype == 0) {
-    switch (cpt) {
-      case 4: FACEVAE_DGRID(float, 4); break;
-      case 2: FACEVAE_DGRID(float, 2); break;
-      case 1: FACEVAE_DGRID(float, 1); break;
-      default: return (int)cudaErrorInvalidValue;
-    }
-  } else if (dtype == 1) {
-    switch (cpt) {
-      case 8: FACEVAE_DGRID(__nv_bfloat16, 8); break;
-      case 4: FACEVAE_DGRID(__nv_bfloat16, 4); break;
-      case 2: FACEVAE_DGRID(__nv_bfloat16, 2); break;
-      case 1: FACEVAE_DGRID(__nv_bfloat16, 1); break;
-      default: return (int)cudaErrorInvalidValue;
-    }
-  } else {
-    return (int)cudaErrorInvalidValue;
-  }
-#undef FACEVAE_DGRID
-  return (int)cudaGetLastError();
+  return facevae_warp::dispatch(dtype, cpt, [&](auto t, auto c) {
+    launch_dgrid<std::remove_pointer_t<decltype(t)>, decltype(c)::value>(
+        x, gx, gy, gz, gout, dgx, dgy, dgz, N, D, H, W, C, K1, NV,
+        static_cast<cudaStream_t>(stream));
+  });
 }
 
 extern "C" int facevae_warp_bwd_dx(const float* gx, const float* gy, const float* gz,
                                    const void* gout, float* dx, int N, int D, int H, int W,
                                    int C, int K1, int NV, int dtype, int cpt, void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-#define FACEVAE_DX(T, P) launch_dx<T, P>(gx, gy, gz, gout, dx, N, D, H, W, C, K1, NV, s)
-  if (dtype == 0) {
-    switch (cpt) {
-      case 4: FACEVAE_DX(float, 4); break;
-      case 2: FACEVAE_DX(float, 2); break;
-      case 1: FACEVAE_DX(float, 1); break;
-      default: return (int)cudaErrorInvalidValue;
-    }
-  } else if (dtype == 1) {
-    switch (cpt) {
-      case 8: FACEVAE_DX(__nv_bfloat16, 8); break;
-      case 4: FACEVAE_DX(__nv_bfloat16, 4); break;
-      case 2: FACEVAE_DX(__nv_bfloat16, 2); break;
-      case 1: FACEVAE_DX(__nv_bfloat16, 1); break;
-      default: return (int)cudaErrorInvalidValue;
-    }
-  } else {
-    return (int)cudaErrorInvalidValue;
-  }
-#undef FACEVAE_DX
-  return (int)cudaGetLastError();
+  return facevae_warp::dispatch(dtype, cpt, [&](auto t, auto c) {
+    launch_dx<std::remove_pointer_t<decltype(t)>, decltype(c)::value>(
+        gx, gy, gz, gout, dx, N, D, H, W, C, K1, NV, static_cast<cudaStream_t>(stream));
+  });
 }

@@ -34,22 +34,11 @@
 // (v, channel vector) of one (n, k) row, so coordinate reads coalesce and a
 // corner's channel vectors are contiguous.  A pure gather: no atomics, so the
 // result is deterministic.
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
+#include "warp_common.cuh"
 
 namespace {
 
-constexpr int kThreads = 256;
-
-__device__ __forceinline__ float to_float(float v) { return v; }
-__device__ __forceinline__ float to_float(__nv_bfloat16 v) { return __bfloat162float(v); }
-__device__ __forceinline__ void store(float* o, float v) { *o = v; }
-__device__ __forceinline__ void store(__nv_bfloat16* o, float v) { *o = __float2bfloat16(v); }
-
-template <typename T, int CPT>
-struct alignas(sizeof(T) * CPT) Pack {
-  T v[CPT];
-};
+using namespace facevae_warp;
 
 template <typename T, int CPT>
 __global__ void __launch_bounds__(kThreads)
@@ -125,24 +114,8 @@ extern "C" int facevae_warp_fwd(const void* x, const float* gx, const float* gy,
                                 const float* gz, void* out, int N, int D, int H,
                                 int W, int C, int K1, int NV, int dtype, int cpt,
                                 void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) {
-    switch (cpt) {
-      case 4: launch<float, 4>(x, gx, gy, gz, out, N, D, H, W, C, K1, NV, s); break;
-      case 2: launch<float, 2>(x, gx, gy, gz, out, N, D, H, W, C, K1, NV, s); break;
-      case 1: launch<float, 1>(x, gx, gy, gz, out, N, D, H, W, C, K1, NV, s); break;
-      default: return (int)cudaErrorInvalidValue;
-    }
-  } else if (dtype == 1) {
-    switch (cpt) {
-      case 8: launch<__nv_bfloat16, 8>(x, gx, gy, gz, out, N, D, H, W, C, K1, NV, s); break;
-      case 4: launch<__nv_bfloat16, 4>(x, gx, gy, gz, out, N, D, H, W, C, K1, NV, s); break;
-      case 2: launch<__nv_bfloat16, 2>(x, gx, gy, gz, out, N, D, H, W, C, K1, NV, s); break;
-      case 1: launch<__nv_bfloat16, 1>(x, gx, gy, gz, out, N, D, H, W, C, K1, NV, s); break;
-      default: return (int)cudaErrorInvalidValue;
-    }
-  } else {
-    return (int)cudaErrorInvalidValue;
-  }
-  return (int)cudaGetLastError();
+  return facevae_warp::dispatch(dtype, cpt, [&](auto t, auto c) {
+    launch<std::remove_pointer_t<decltype(t)>, decltype(c)::value>(
+        x, gx, gy, gz, out, N, D, H, W, C, K1, NV, static_cast<cudaStream_t>(stream));
+  });
 }

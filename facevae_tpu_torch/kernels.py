@@ -1,9 +1,11 @@
 """Build and load the port's CUDA kernels.
 
 Each library is one ``csrc/<name>.cu`` file with a plain C interface
-(warp_fwd: the warp forward; warp_bwd: its dgrid and dx kernels).  At first
-use it is compiled with nvcc for sm_90a into a shared library under
-``_build/`` (named by a hash of the source and flags, so an edit rebuilds)
+(warp_fwd: the multi-grid warp forward; warp_bwd: its dgrid and dx kernels;
+warp_grid: the single-grid warp's forward, dgrid and dx kernels), which may
+include the shared ``csrc/*.cuh`` headers.  At first use it is compiled with
+nvcc for sm_90a into a shared library under ``_build/`` (named by a hash of
+the source, the headers and the flags, so an edit rebuilds)
 and loaded with ctypes; load_all starts one nvcc per source at once.
 Nothing else is built or fetched.  Nothing here runs at import time: the CPU
 tests import every module and have no nvcc.
@@ -25,7 +27,7 @@ BUILD_DIR = _PKG / "_build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
-LIBRARIES = ("warp_fwd", "warp_bwd")
+LIBRARIES = ("warp_fwd", "warp_bwd", "warp_grid")
 
 _lock = threading.Lock()           # guards _name_locks
 _name_locks = {}
@@ -51,7 +53,9 @@ def load(name: str) -> ctypes.CDLL:
         if name in _libs:
             return _libs[name]
         src = SRC_DIR / f"{name}.cu"
-        digest = hashlib.sha256(src.read_bytes()
+        # the headers too: an edit of one rebuilds every library
+        sources = [src, *sorted(SRC_DIR.glob("*.cuh"))]
+        digest = hashlib.sha256(b"".join(p.read_bytes() for p in sources)
                                 + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
         so = BUILD_DIR / f"{name}-{digest}.so"
         info = {"seconds": 0.0, "ptxas": ""}

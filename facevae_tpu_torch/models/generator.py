@@ -1,10 +1,12 @@
 """Generator (port of facevae_tpu/models/generator.py).
 
-Warps the appearance volume by the dense deformation (warp_single: the warp
-kernel at K1=1), folds depth into channels c-major (torch's
-view(N, C*D, H, W): channel c*D + d), gates by the occlusion map, then 2D
-res/up decoding to a sigmoid RGB image [N,H,W,3].  use_weight_norm puts
-spectral norm on the block convs; mid_conv and out_conv are plain.
+Warps the appearance volume by the dense deformation (warp_single: the
+single-grid warp of csrc/warp_grid.cu at fp32, the multi-grid warp of
+csrc/warp_fwd.cu and warp_bwd.cu at K1=1 at bf16), folds depth into channels
+c-major (torch's view(N, C*D, H, W): channel c*D + d), gates by the
+occlusion map, then 2D res/up decoding to a sigmoid RGB image [N,H,W,3].
+use_weight_norm puts spectral norm on the block convs; mid_conv and out_conv
+are plain.
 """
 from __future__ import annotations
 

@@ -47,7 +47,8 @@ class MFE(nn.Module):
         N, D, H, W, _ = fs.shape
         K1, C2 = self.K + 1, self.C2
         # the 1x1x1 compress conv on the channel-last volume is a matmul
-        fs_c = F.linear(fs, self.compress.weight.flatten(1), self.compress.bias)
+        fs_c = F.linear(fs, self.compress.weight.flatten(1).to(fs.dtype),
+                        self.compress.bias.to(fs.dtype))
 
         heatmap = create_heatmap_representations_cl(fs_c, kp_s, kp_d)  # [N,D,H,W,K1]
         jac, b = motion_affine_params(kp_s, kp_d, Rs, Rd)

@@ -6,6 +6,12 @@ The JAX package's TPU execution paths — space-to-depth packing, z-banded and
 depth-folded convs, the MXU weight gradient — compute the same function with
 the same parameters and are not ported: each is a plain conv here.
 
+Mixed precision follows the JAX layers too: parameters stay fp32 and Conv
+and Dense cast weight and bias to the input's dtype per call (a
+spectral-norm weight is divided by its fp32 sigma first; u, v stay fp32);
+BatchNorm and InstanceNorm take their statistics in fp32 and apply them in
+the input's dtype.
+
 Training forms follow the JAX layers: BatchNorm normalizes by the biased
 batch variance and updates its running statistics in place; a spectral-norm
 Conv runs one power iteration per training forward.  The buffers a forward
@@ -84,14 +90,22 @@ class Conv(nn.Module):
             # backward of this call still needs them (their version counters)
             sigma = torch.dot(self.weight_u.clone(), w_mat @ self.weight_v.clone())
             w = w / sigma
-        return _CONV[self.dim](x, w, self.bias, self.stride, self.padding)
+        return _CONV[self.dim](x, w.to(x.dtype), _cast(self.bias, x), self.stride,
+                               self.padding)
+
+
+def _cast(p, x):
+    return None if p is None else p.to(x.dtype)
 
 
 class Dense(nn.Linear):
-    """nn.Linear with the seeded init."""
+    """nn.Linear with the seeded init, applied in the input's dtype."""
 
     def reset_parameters(self):
         pass                      # init_parameters(generator) does it, seeded
+
+    def forward(self, x):
+        return F.linear(x, self.weight.to(x.dtype), _cast(self.bias, x))
 
     def init_parameters(self, generator):
         uniform_fan_in_(self.weight, self.in_features, generator)

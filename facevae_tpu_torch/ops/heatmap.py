@@ -30,6 +30,14 @@ def kp2gaussian_3d_cl(kp: torch.Tensor, spatial_size,
     return torch.exp(-0.5 * torch.sum(diff * diff, dim=-1) / kp_variance)
 
 
+def kp2gaussian_3d(kp: torch.Tensor, spatial_size, kp_variance: float = 0.01) -> torch.Tensor:
+    """Gaussian bumps at keypoints, keypoint-major: kp [N,K,3] -> [N,K,D,H,W]
+    (the reference form, utils.py:130-136)."""
+    grid = make_coordinate_grid_3d(spatial_size, dtype=kp.dtype, device=kp.device)
+    diff = grid[None, None] - kp[:, :, None, None, None, :]
+    return torch.exp(-0.5 * torch.sum(diff * diff, dim=-1) / kp_variance)
+
+
 def kp2gaussian_2d_cl(kp: torch.Tensor, spatial_size,
                       kp_variance: float = 0.01) -> torch.Tensor:
     """Gaussian bumps at keypoints: kp [N,K,2] -> [N,H,W,K]."""

@@ -13,11 +13,13 @@ import torch.nn.functional as F
 
 def interpolate_bilinear_2d(x: torch.Tensor, out_hw) -> torch.Tensor:
     """Bilinear resize [N,C,H,W] -> [N,C,Ho,Wo], align_corners=False, no
-    antialiasing (the reference's F.interpolate)."""
+    antialiasing (the reference's F.interpolate); summed in fp32 at least
+    and returned in x's dtype, as the JAX package does."""
     if tuple(out_hw) == tuple(x.shape[-2:]):
         return x
-    return F.interpolate(x, size=tuple(out_hw), mode="bilinear",
-                         align_corners=False, antialias=False)
+    y = F.interpolate(x.to(torch.promote_types(x.dtype, torch.float32)), size=tuple(out_hw),
+                      mode="bilinear", align_corners=False, antialias=False)
+    return y.to(x.dtype)
 
 
 def interpolate_nearest_2d(x: torch.Tensor, out_hw) -> torch.Tensor:
@@ -51,8 +53,11 @@ def avg_pool_2d(x: torch.Tensor, window: int = 2) -> torch.Tensor:
 
 
 def avg_pool_3d(x: torch.Tensor, window=(1, 2, 2)) -> torch.Tensor:
-    """[N,C,D,H,W]; the reference pools only H,W."""
-    return F.avg_pool3d(x, tuple(window))
+    """[N,C,D,H,W]; the reference pools only H,W.  Averaged in fp32 at least
+    and returned in x's dtype, as the JAX package's mean does (PyTorch's CPU
+    avg_pool3d takes no bf16)."""
+    return F.avg_pool3d(x.to(torch.promote_types(x.dtype, torch.float32)),
+                        tuple(window)).to(x.dtype)
 
 
 def max_pool_2d(x: torch.Tensor, window: int = 3, stride: int = 2,

@@ -1,18 +1,58 @@
-"""Dense motion from keypoint pairs, analytic forms only (port of
-facevae_tpu/ops/motion.py:37-166), channel-last, in fp32.
+"""Dense motion from keypoint pairs (port of facevae_tpu/ops/motion.py), in
+fp32.
 
-Each candidate motion is affine in the voxel position,
-motion_k(p) = jac (p - kp_d_k) + kp_s_k (identity for k=0), so the
-[N,K+1,D,H,W,3] tensor never exists: the warp reads per-axis pixel coordinate
-planes and the mask-blended deformation reduces to mask-weighted keypoint
-tables.
+Two forms compute the same warps.  The reference form (utils.py:139-179)
+materializes the K+1 sparse motions [N,K+1,D,H,W,3] and warps the source by
+each through grid_sample_3d_fast with grids_per_source = K+1.  The analytic
+form, which MFE runs, uses that each candidate motion is affine in the voxel
+position, motion_k(p) = jac (p - kp_d_k) + kp_s_k (identity for k=0): the
+warp reads per-axis pixel coordinate planes and the mask-blended deformation
+reduces to mask-weighted keypoint tables, channel-last.
 """
 from __future__ import annotations
 
 import torch
 
+from facevae_tpu_torch.ops.fast_warp import grid_sample_3d_fast, grid_sample_3d_multi
 from facevae_tpu_torch.ops.geometry import make_coordinate_grid_3d
-from facevae_tpu_torch.ops.heatmap import kp2gaussian_3d_cl
+from facevae_tpu_torch.ops.heatmap import kp2gaussian_3d, kp2gaussian_3d_cl
+
+
+def create_heatmap_representations(fs, kp_s, kp_d):
+    """Difference-of-gaussian heatmaps [N,K+1,D,H,W], zero channel first
+    (the reference form; fs [N,D,H,W,C] gives only the spatial size)."""
+    spatial = tuple(fs.shape[1:4])
+    heat = kp2gaussian_3d(kp_d.float(), spatial) - kp2gaussian_3d(kp_s.float(), spatial)
+    return torch.cat([heat.new_zeros((heat.shape[0], 1) + heat.shape[2:]), heat], dim=1)
+
+
+def create_sparse_motions(fs, kp_s, kp_d, Rs, Rd):
+    """The K+1 candidate backward warps [N,K+1,D,H,W,3], identity first:
+    motion_k(p) = Rs Rd^-1 (p - kp_d_k) + kp_s_k, in fp32."""
+    N, D, H, W = fs.shape[:4]
+    kp_s, kp_d = kp_s.float(), kp_d.float()
+    grid = make_coordinate_grid_3d((D, H, W), device=fs.device)       # [D,H,W,3]
+    identity = grid[None, None].expand(N, 1, D, H, W, 3)
+    coords = grid[None, None] - kp_d[:, :, None, None, None, :]        # [N,K,D,H,W,3]
+    jac = torch.matmul(Rs.float(), torch.linalg.inv(Rd.float()))
+    moved = torch.einsum("nij,nkdhwj->nkdhwi", jac, coords) + kp_s[:, :, None, None, None, :]
+    return torch.cat([identity, moved], dim=1)
+
+
+def create_deformed_source_image(fs, sparse_motions):
+    """fs [N,D,H,W,C] warped by each of the K+1 sparse motions
+    [N,K+1,D,H,W,3] -> [N,K+1,D,H,W,C]: one grid_sample_3d_fast call whose
+    K+1 grids per source share the un-repeated volume."""
+    N, D, H, W, C = fs.shape
+    K1 = sparse_motions.shape[1]
+    warped = grid_sample_3d_fast(fs, sparse_motions.reshape(N * K1, D, H, W, 3), K1)
+    return warped.reshape(N, K1, D, H, W, C)
+
+
+def create_deformed_source_fused(fs, sparse_motions):
+    """The same warps in MFE's fused k-major layout [N,D,H,W,(K+1)*C]
+    (warp_multi_pixel)."""
+    return grid_sample_3d_multi(fs, sparse_motions, sparse_motions.shape[1])
 
 
 def create_heatmap_representations_cl(fs, kp_s, kp_d):

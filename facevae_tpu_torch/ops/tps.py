@@ -1,10 +1,11 @@
 """Random affine + thin-plate-spline warp of the equivariance constraint
-(port of facevae_tpu/ops/tps.py, fp32 path).
+(port of facevae_tpu/ops/tps.py).
 
 The parameters are drawn from an explicit torch.Generator and carried in a
 small NamedTuple, so a step can be replayed with injected parameters (the
-tests hand both packages the same numpy draws).  The JAX package's bf16 MXU
-branch of transform_frame is outside the fp32 port.
+tests hand both packages the same numpy draws).  transform_frame has the JAX
+package's two branches: an exact fp32 gather, and at bf16 the warp kernel on
+pre-reflected pixel coordinates.
 """
 from __future__ import annotations
 
@@ -12,6 +13,7 @@ from typing import NamedTuple
 
 import torch
 
+from facevae_tpu_torch.ops.fast_warp import warp_multi_pixel
 from facevae_tpu_torch.ops.geometry import make_coordinate_grid_2d
 
 
@@ -54,6 +56,13 @@ def _reflect(coord, lo: float, hi: float):
     return coord + lo
 
 
+def _reflected_pixels(g, size: int):
+    """Normalized -> pixel coordinates, reflected into [0, size-1] and
+    clipped: reflection padding becomes interior sampling."""
+    p = (g + 1.0) * 0.5 * (size - 1)
+    return torch.clamp(_reflect(p, 0.0, float(size - 1)), 0.0, float(size - 1))
+
+
 def grid_sample_2d_reflect(x: torch.Tensor, grid: torch.Tensor) -> torch.Tensor:
     """Bilinear grid_sample of x [N,H,W,C] at grid [N,Ho,Wo,2] in [-1,1],
     align_corners=True, reflection padding -> [N,Ho,Wo,C] fp32 (the JAX
@@ -61,10 +70,7 @@ def grid_sample_2d_reflect(x: torch.Tensor, grid: torch.Tensor) -> torch.Tensor:
     N, H, W, C = x.shape
     _, Ho, Wo, _ = grid.shape
     g = grid.float()
-    gx = (g[..., 0] + 1.0) * 0.5 * (W - 1)
-    gy = (g[..., 1] + 1.0) * 0.5 * (H - 1)
-    gx = torch.clamp(_reflect(gx, 0.0, float(W - 1)), 0.0, float(W - 1))
-    gy = torch.clamp(_reflect(gy, 0.0, float(H - 1)), 0.0, float(H - 1))
+    gx, gy = _reflected_pixels(g[..., 0], W), _reflected_pixels(g[..., 1], H)
     x0, y0 = torch.floor(gx), torch.floor(gy)
     tx, ty = gx - x0, gy - y0
     flat = x.float().reshape(N, H * W, C)
@@ -80,10 +86,25 @@ def grid_sample_2d_reflect(x: torch.Tensor, grid: torch.Tensor) -> torch.Tensor:
     return out
 
 
-def transform_frame(tp: TransformParams, frame: torch.Tensor) -> torch.Tensor:
+def transform_frame(tp: TransformParams, frame: torch.Tensor,
+                    compute_dtype: torch.dtype = torch.float32) -> torch.Tensor:
     """Warp frame [N,H,W,C] by the TPS-transformed sampling grid (reference
-    trainer.py:106-110: grid_sample 2D, align_corners=True, reflection)."""
+    trainer.py:106-110: grid_sample 2D, align_corners=True, reflection).
+
+    fp32: the exact gather, result fp32.  bf16: the JAX package's branch on
+    its chip (facevae_tpu/ops/tps.py:71-83), on every device: the pixel
+    coordinates are reflected and clipped up front, then the bf16 frame goes
+    through warp_multi_pixel as a D=1 volume (the multi-grid warp kernel at
+    K1=1, C=3; its plain version on the CPU); result bf16."""
     N, H, W, C = frame.shape
     grid = make_coordinate_grid_2d((H, W), device=frame.device).reshape(1, H * W, 2)
     grid = warp_coordinates(tp, grid.to(tp.theta.dtype)).reshape(N, H, W, 2)
+    if compute_dtype == torch.bfloat16:
+        gx = _reflected_pixels(grid[..., 0].float(), W).reshape(N, 1, H * W)
+        gy = _reflected_pixels(grid[..., 1].float(), H).reshape(N, 1, H * W)
+        out = warp_multi_pixel(frame.to(torch.bfloat16)[:, None], gx, gy,
+                               torch.zeros_like(gx), (1, H, W))
+        return out.reshape(N, H, W, C)
+    if compute_dtype != torch.float32:
+        raise ValueError(f"transform_frame computes in float32 or bfloat16, not {compute_dtype}")
     return grid_sample_2d_reflect(frame.float(), grid)

@@ -1,6 +1,13 @@
 """The training objective (port of facevae_tpu/train/objective.py): the
 generator-side forward with its ten losses and the discriminator's hinge
-losses, fp32.
+losses.
+
+Mixed precision follows the JAX objective: with
+ModelConfig.compute_dtype="bfloat16" the images enter every net in bf16 and
+the conv stacks run in bf16, while parameters, BatchNorm statistics,
+geometry (keypoints, rotations, warp coordinates, softmax heatmaps) and
+every loss reduction stay fp32.  The TPS-warped driving frame and the
+generated frame are fp32 between nets and cast back where they enter one.
 
 The JAX package threads BatchNorm statistics and spectral-norm u, v through
 a VarBank so that repeated calls of one module see each other's updates.
@@ -34,10 +41,19 @@ from facevae_tpu_torch.ops.tps import (
 )
 
 LOSS_NAMES = ("P", "G", "F", "E", "L", "H", "D", "C", "K", "R")
+_COMPUTE_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
 
 def _chunk3(x):
     return x.chunk(3, dim=0)
+
+
+def compute_dtype(cfg: Config) -> torch.dtype:
+    """The dtype the conv stacks run in: ModelConfig.compute_dtype."""
+    name = cfg.model.compute_dtype
+    if name not in _COMPUTE_DTYPES:
+        raise ValueError(f"compute_dtype {name!r} is not one of {sorted(_COMPUTE_DTYPES)}")
+    return _COMPUTE_DTYPES[name]
 
 
 def generator_forward(nets, cfg: Config, s, d, s_a, d_a,
@@ -49,16 +65,17 @@ def generator_forward(nets, cfg: Config, s, d, s_a, d_a,
     weighted losses {P,G,F,E,L,H,D,C,K,R} and the tensors the discriminator
     phase and the visualizer read.  The TPS parameters are drawn from
     ``generator`` unless ``transform_params`` is given."""
-    if cfg.model.compute_dtype != "float32":
-        raise NotImplementedError("the port's training step is fp32 only; the bf16 step is "
-                                  "not ported (ROADMAP Queue 1)")
     if train_vae:
         raise NotImplementedError("VAE sampling (train_vae=True) is not ported (ROADMAP "
                                   "Queue 1); the reference trains with it off (q8)")
     w = cfg.loss
     N = s.shape[0]
-    fs = nets["afe"](s)
-    kp_c = nets["ckd"](s)
+    cdt = compute_dtype(cfg)
+    s_c, d_c = s.to(cdt), d.to(cdt)
+    s_a = s_a.to(cdt) if s_a is not None else None
+    d_a = d_a.to(cdt) if d_a is not None else None
+    fs = nets["afe"](s_c)
+    kp_c = nets["ckd"](s_c)
 
     tp = transform_params
     if tp is None:
@@ -66,8 +83,8 @@ def generator_forward(nets, cfg: Config, s, d, s_a, d_a,
         tp = random_transform_params(generator, N, sigma_affine=t.sigma_affine,
                                      sigma_tps=t.sigma_tps, points_tps=t.points_tps,
                                      device=s.device)
-    transformed_d = transform_frame(tp, d)
-    cated = torch.cat([s, d, transformed_d], dim=0)
+    transformed_d = transform_frame(tp, d.float(), compute_dtype=cdt).float()
+    cated = torch.cat([s_c, d_c, transformed_d.to(cdt)], dim=0)
 
     yaw, pitch, roll, t, scale = nets["hpe_ede"](cated)
     t_s, t_d, t_tran = _chunk3(t)
@@ -88,19 +105,19 @@ def generator_forward(nets, cfg: Config, s, d, s_a, d_a,
                                          t_tran, scale_tran)
 
     efe = nets["efe"]
-    kp_s, _, _, _, _ = efe(s, s_a, kp_s_old)
-    kp_d, x_c_d, x_a_c_d, _, (x_vae_d, _) = efe(d, d_a, kp_d_old)
-    transformed_kp = efe(transformed_d, None, transformed_kp_old)[0]
+    kp_s, _, _, _, _ = efe(s_c, s_a, kp_s_old)
+    kp_d, x_c_d, x_a_c_d, _, (x_vae_d, _) = efe(d_c, d_a, kp_d_old)
+    transformed_kp = efe(transformed_d.to(cdt), None, transformed_kp_old)[0]
 
     reverse_kp = warp_coordinates(tp, transformed_kp[:, :, :2])
     deformation, occlusion, mask = nets["mfe"](fs, kp_s, kp_d, Rs, Rd)
     generated_d = nets["generator"](fs, deformation, occlusion).float()
-    output_d, features_d = nets["discriminator"](d, kp_d)
-    output_gd, features_gd = nets["discriminator"](generated_d, kp_d)
+    output_d, features_d = nets["discriminator"](d_c, kp_d)
+    output_gd, features_gd = nets["discriminator"](generated_d.to(cdt), kp_d)
 
     zero = torch.zeros((), dtype=torch.float32, device=s.device)
     losses = {
-        "P": w.perceptual * nets["perceptual"](generated_d, d),
+        "P": w.perceptual * nets["perceptual"](generated_d.to(cdt), d_c),
         "G": w.gan * gan_loss_gen(output_gd),
         "F": w.feature_matching * feature_matching_loss(features_gd, features_d),
         "E": w.equivariance * equivariance_loss(kp_d, reverse_kp),
@@ -127,7 +144,8 @@ def generator_forward(nets, cfg: Config, s, d, s_a, d_a,
 
 def discriminator_forward(nets, cfg: Config, d, generated_d, kp_d) -> Dict[str, torch.Tensor]:
     """The discriminator's hinge losses on real d and the detached fake."""
-    output_d, _ = nets["discriminator"](d, kp_d.detach())
-    output_gd, _ = nets["discriminator"](generated_d.detach(), kp_d.detach())
+    cdt = compute_dtype(cfg)
+    output_d, _ = nets["discriminator"](d.to(cdt), kp_d.detach())
+    output_gd, _ = nets["discriminator"](generated_d.detach().to(cdt), kp_d.detach())
     return {"G1": cfg.loss.gan * gan_loss_dis(output_gd, t_real=False),
             "G2": cfg.loss.gan * gan_loss_dis(output_d, t_real=True)}

@@ -1,7 +1,8 @@
-"""PyTorch port on the card: the CUDA warp kernels (forward, and the
-backward's dgrid and dx halves) against their plain versions, the wrappers'
-refusals, the tiny golden pipeline through the forward kernel, and a tiny
-training step through all three.  Every test skips without a CUDA device.
+"""PyTorch port on the card: the CUDA warp kernels (the multi-grid forward
+and its backward's dgrid and dx halves; the single-grid forward, dgrid and
+dx) against their plain versions, the wrappers' refusals, the tiny golden
+pipeline through the forward kernels, and tiny fp32 and bf16 training steps
+through all of them.  Every test skips without a CUDA device.
 
 This file imports no JAX, so it also runs on a machine without it:
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_cuda.py -q
@@ -9,6 +10,8 @@ This file imports no JAX, so it also runs on a machine without it:
 import numpy as np
 import pytest
 import torch
+
+import dataclasses
 
 from facevae_tpu_torch.config import tiny_config
 from facevae_tpu_torch.convert import load_jax_variables, nested_from_flat
@@ -104,6 +107,87 @@ def test_kernel_wrapper_refuses_what_it_cannot_take():
         fast_warp.warp_multi_pixel_cuda(x, coords[0], coords[1].cpu(), coords[2], spatial)
 
 
+def _grid_case(seed, N, D, H, W, C, gps, dtype):
+    """x, a normalized grid [N*gps,D,H,W,3] with exact integers, the last
+    index, far-out, +-inf and NaN coordinates, and a cotangent."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    x = torch.randn(N, D, H, W, C, generator=g, device="cuda").to(dtype)
+    size = torch.tensor([W, H, D], device="cuda", dtype=torch.float32)
+    px = torch.rand(N * gps, D, H, W, 3, generator=g, device="cuda") * (size + 3) - 2
+    pick = torch.rand(px.shape, generator=g, device="cuda")
+    px = torch.where(pick < 0.1, px.round(), px)
+    px = torch.where((pick >= 0.1) & (pick < 0.15), size - 1, px)
+    grid = px * (2.0 / (size - 1)) - 1.0
+    probes = torch.tensor([float("inf"), float("-inf"), float("nan"), 1e30, -1e6],
+                          device="cuda")
+    grid = torch.where(pick > 0.98, probes[(pick * 1e4).long() % 5], grid).contiguous()
+    gout = torch.randn(N * gps, D, H, W, C, generator=g, device="cuda").to(dtype)
+    return x, grid, gout
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", [(2, 4, 8, 8, 32, 1), (2, 4, 16, 16, 4, 16),
+                                   (1, 3, 5, 7, 3, 2), (2, 2, 6, 6, 6, 3)])
+def test_grid_kernels_match_plain(dtype, shape):
+    """The single-grid forward, dgrid and dx kernels against their plain
+    versions, gps = shape[-1]: forward and dx 1e-5 of max|ref| in fp32
+    (sums in another order, atomics) and 1e-2 in bf16 (one rounding to
+    bf16); dgrid 1e-5 in both (fp32 sums of the same products)."""
+    x, grid, gout = _grid_case(sum(shape), *shape, dtype)
+    gps = shape[-1]
+    out = fast_warp.grid_sample_3d_cuda(x, grid, gps)
+    dx, dgrid = fast_warp.grid_sample_3d_bwd_cuda(x, grid, gout, gps)
+    ref = fast_warp.grid_sample_3d_plain(x, grid, gps)
+    rdx, rdgrid = fast_warp.grid_sample_3d_bwd_plain(x, grid, gout, gps)
+    torch.cuda.synchronize()
+    tol = 1e-5 if dtype == torch.float32 else 1e-2
+    assert out.dtype == dx.dtype == dtype and dgrid.dtype == torch.float32
+    for what, a, r, rel in (("forward", out, ref, tol), ("dx", dx, rdx, tol),
+                            ("dgrid", dgrid, rdgrid, 1e-5)):
+        assert a.shape == r.shape and torch.isfinite(a).all(), what
+        assert_close(a.float(), r.float(), rel, f"{what} {shape} {dtype}")
+
+
+@pytest.mark.parametrize("gps", [1, 16])
+def test_grid_kernel_agrees_with_the_multi_kernel(gps):
+    """Kernel 4 at gps grids and kernel 1 at K1 = gps on the same samples
+    (the pixel coordinates unnormalized as the kernel does) agree bit for
+    bit: the same corner walk and the same fp32 sums."""
+    N, D, H, W, C = 2, 4, 16, 16, 4
+    x, grid, _ = _grid_case(5, N, D, H, W, C, gps, torch.float32)
+    out = fast_warp.grid_sample_3d_cuda(x, grid, gps)
+    coords = [((grid[..., a] + 1.0) * 0.5 * (size - 1)).reshape(N, gps, -1).contiguous()
+              for a, size in enumerate((W, H, D))]
+    multi = fast_warp.warp_multi_pixel_cuda(x, *coords, (D, H, W))
+    multi = multi.reshape(N, -1, gps, C).permute(0, 2, 1, 3).reshape(out.shape)
+    torch.cuda.synchronize()
+    assert torch.equal(multi, out)
+
+
+def test_grid_wrappers_refuse_what_they_cannot_take():
+    x, grid, gout = _grid_case(1, 1, 2, 4, 4, 4, 2, torch.float32)
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        fast_warp.grid_sample_3d_cuda(x.cpu(), grid.cpu(), 2)
+    with pytest.raises(ValueError, match="fp32"):
+        fast_warp.grid_sample_3d_cuda(x, grid.double(), 2)
+    with pytest.raises(ValueError, match="fp32"):
+        fast_warp.grid_sample_3d_bwd_cuda(x, grid.bfloat16(), gout, 2)
+    with pytest.raises(ValueError, match="N\\*gps"):
+        fast_warp.grid_sample_3d_cuda(x, grid, 3)
+    fast_warp.reset_launch_counts()
+    xg = x.clone().requires_grad_()
+    fast_warp.grid_sample_3d_fast(xg, grid, 2).sum().backward()
+    assert (fast_warp.launches["grid_bwd_dx"], fast_warp.launches["grid_bwd_dgrid"]) == (1, 0)
+    torch.use_deterministic_algorithms(True)
+    try:
+        with pytest.raises(RuntimeError, match="deterministic"):
+            fast_warp.grid_sample_3d_fast(xg, grid, 2).sum().backward()
+        gg = grid.clone().requires_grad_()           # dgrid alone has no atomics
+        fast_warp.grid_sample_3d_fast(x, gg, 2).sum().backward()
+    finally:
+        torch.use_deterministic_algorithms(False)
+
+
 def test_golden_pipeline_runs_through_the_kernel():
     z = np.load(golden.GOLDEN)
     variables = nested_from_flat({k[len("var/"):]: z[k] for k in z.files if k.startswith("var/")})
@@ -115,16 +199,26 @@ def test_golden_pipeline_runs_through_the_kernel():
     enc = pipe.encode_source(torch.from_numpy(z["in/source"]).cuda())
     fast_warp.reset_launch_counts()
     out = pipe.drive_frame(*enc, torch.from_numpy(z["in/driving"]).cuda())
-    assert fast_warp.launches == {"warp_fwd": 2, "warp_fwd_plain": 0, "warp_bwd_dgrid": 0,
-                                  "warp_bwd_dgrid_plain": 0, "warp_bwd_dx": 0,
-                                  "warp_bwd_dx_plain": 0}
+    assert fast_warp.launches == {**dict.fromkeys(fast_warp.launches, 0),
+                                  "warp_fwd": 1, "grid_fwd": 1}
     assert_close(out, z["out/drive"], 1e-4, "drive_frame")
 
 
-def test_tiny_training_step_runs_through_the_kernels():
-    """A tiny_config() step on the card: finite losses, each warp kernel
-    launched twice (MFE and Generator), their plain versions never."""
+# per step: fp32 runs MFE through the multi-grid kernels and the Generator
+# through the single-grid ones; bf16 runs MFE, the Generator and the TPS
+# warp (forward only) through the multi-grid kernels
+STEP_LAUNCHES = {"float32": {"warp_fwd": 1, "warp_bwd_dgrid": 1, "warp_bwd_dx": 1,
+                             "grid_fwd": 1, "grid_bwd_dgrid": 1, "grid_bwd_dx": 1},
+                 "bfloat16": {"warp_fwd": 3, "warp_bwd_dgrid": 2, "warp_bwd_dx": 2}}
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_tiny_training_step_runs_through_the_kernels(dtype):
+    """A tiny_config() step on the card: finite losses, the warp kernels
+    launched as STEP_LAUNCHES says, their plain versions never; parameters
+    and Adam state stay fp32."""
     cfg = tiny_config()
+    cfg = dataclasses.replace(cfg, model=dataclasses.replace(cfg.model, compute_dtype=dtype))
     state = create_train_state(cfg, device="cuda")
     g = torch.Generator(device="cuda").manual_seed(0)
     batch = tuple(torch.rand(2, 64, 64, 3, generator=g, device="cuda") for _ in range(4))
@@ -132,6 +226,7 @@ def test_tiny_training_step_runs_through_the_kernels():
     out = train_step(state, batch, generator=g)
     torch.cuda.synchronize()
     assert all(torch.isfinite(v) for v in {**out["losses_g"], **out["losses_d"]}.values())
-    assert fast_warp.launches == {"warp_fwd": 2, "warp_fwd_plain": 0, "warp_bwd_dgrid": 2,
-                                  "warp_bwd_dgrid_plain": 0, "warp_bwd_dx": 2,
-                                  "warp_bwd_dx_plain": 0}
+    assert fast_warp.launches == {**dict.fromkeys(fast_warp.launches, 0), **STEP_LAUNCHES[dtype]}
+    assert {p.dtype for m in state.nets.values() for p in m.parameters()} == {torch.float32}
+    assert {v.dtype for opt in (state.g_opt, state.d_opt) for st in opt.state.values()
+            for v in st.values()} == {torch.float32}

@@ -134,9 +134,14 @@ def test_server_batches_requests(env):
         assert engine.stats == {"batches": 2, "frames": 4, "padded": 0}
         code, body = _post(f"{base}/frontalize", frame[1])
         assert code == 200 and len(body) == size * size * 3
-        assert fast_warp.launches == {"warp_fwd": 0, "warp_fwd_plain": 6, "warp_bwd_dgrid": 0,
+        # per drive batch and frontalize: MFE's multi-grid warp and the
+        # Generator's single-grid warp (fp32), both by their plain versions
+        assert fast_warp.launches == {"warp_fwd": 0, "warp_fwd_plain": 3, "warp_bwd_dgrid": 0,
                                       "warp_bwd_dgrid_plain": 0, "warp_bwd_dx": 0,
-                                      "warp_bwd_dx_plain": 0}
+                                      "warp_bwd_dx_plain": 0, "grid_fwd": 0,
+                                      "grid_fwd_plain": 3, "grid_bwd_dgrid": 0,
+                                      "grid_bwd_dgrid_plain": 0, "grid_bwd_dx": 0,
+                                      "grid_bwd_dx_plain": 0}
     finally:
         server.shutdown()
         server.server_close()

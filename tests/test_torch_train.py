@@ -162,9 +162,12 @@ def test_step_losses_and_plain_launches(env, stepped):
         assert_held(out["losses_g"][k], *_refs(env, "losses_g", k), LOSS_REL, f"loss {k}")
     for k in ("G1", "G2"):
         assert_held(out["losses_d"][k], *_refs(env, "losses_d", k), LOSS_REL, f"loss {k}")
-    # MFE and Generator: one forward and one backward of each half per step
-    assert launches == {"warp_fwd": 0, "warp_fwd_plain": 2, "warp_bwd_dgrid": 0,
-                        "warp_bwd_dgrid_plain": 2, "warp_bwd_dx": 0, "warp_bwd_dx_plain": 2}
+    # one forward and one backward of each half per step: MFE's multi-grid
+    # warp and the Generator's single-grid warp (fp32)
+    assert launches == {"warp_fwd": 0, "warp_fwd_plain": 1, "warp_bwd_dgrid": 0,
+                        "warp_bwd_dgrid_plain": 1, "warp_bwd_dx": 0, "warp_bwd_dx_plain": 1,
+                        "grid_fwd": 0, "grid_fwd_plain": 1, "grid_bwd_dgrid": 0,
+                        "grid_bwd_dgrid_plain": 1, "grid_bwd_dx": 0, "grid_bwd_dx_plain": 1}
 
 
 @pytest.mark.parametrize("name", G_MODEL_NAMES + D_MODEL_NAMES)

@@ -96,8 +96,7 @@ def test_cpu_tensors_take_the_plain_version(rng):
     tfw.reset_launch_counts()
     out = tfw.warp_multi_pixel(torch.from_numpy(x), *map(torch.from_numpy, coords), spatial)
     assert out.shape == (2, *spatial, 9)
-    assert tfw.launches == {"warp_fwd": 0, "warp_fwd_plain": 1, "warp_bwd_dgrid": 0,
-                            "warp_bwd_dgrid_plain": 0, "warp_bwd_dx": 0, "warp_bwd_dx_plain": 0}
+    assert tfw.launches == {**dict.fromkeys(tfw.launches, 0), "warp_fwd_plain": 1}
 
 
 def test_plain_version_keeps_bf16_and_masks_inf(rng):
@@ -156,8 +155,8 @@ def test_autograd_function_matches_jax_vjp(rng):
     xt, *ct = (torch.from_numpy(a).requires_grad_() for a in (x, *coords))
     tfw.reset_launch_counts()
     (tfw.warp_multi_pixel(xt, *ct, spatial) * torch.from_numpy(gout)).sum().backward()
-    assert tfw.launches == {"warp_fwd": 0, "warp_fwd_plain": 1, "warp_bwd_dgrid": 0,
-                            "warp_bwd_dgrid_plain": 1, "warp_bwd_dx": 0, "warp_bwd_dx_plain": 1}
+    assert tfw.launches == {**dict.fromkeys(tfw.launches, 0), "warp_fwd_plain": 1,
+                            "warp_bwd_dgrid_plain": 1, "warp_bwd_dx_plain": 1}
     _, vjp = jax.vjp(lambda *a: jfw.warp_multi_pixel(*a, spatial), jnp.asarray(x),
                      *map(jnp.asarray, coords))
     for t, r, what in zip((xt, *ct), vjp(jnp.asarray(gout)), ("dx", "dgx", "dgy", "dgz")):

@@ -3,10 +3,11 @@
 time, on one CUDA card.
 
     python tools/profile_torch_serve.py [--batch 8] [--iters 5] [--out artifacts/profile_serve.json]
-    python tools/profile_torch_serve.py --train [--batch 8] [--iters 3] [--out artifacts/profile_train.json]
+    python tools/profile_torch_serve.py --train [--dtype bfloat16] [--batch 8] [--iters 3] [--out ...]
 
-Full-width ModelConfig() in fp32 (TF32 off, facevae_tpu_torch.numerics) with
-seeded random weights.  Reports, for a batch of --batch frames:
+Full-width ModelConfig() (TF32 off, facevae_tpu_torch.numerics) with seeded
+random weights; serving runs fp32, training --dtype (float32, the default,
+or bfloat16).  Reports, for a batch of --batch frames:
   - serving: ms per encode_source / drive_frame / frontalize_frame (host
     clock around work that ends in torch.cuda.synchronize, median of
     --iters); ms per net inside drive_frame (CUDA events from forward hooks);
@@ -49,6 +50,8 @@ def _kind(name):
         return "warp kernel (csrc/warp_fwd.cu)"
     if "warp_bwd_dgrid_kernel" in n or "warp_bwd_dx_kernel" in n:
         return "warp backward kernels (csrc/warp_bwd.cu)"
+    if any(k in n for k in ("grid_fwd_kernel", "grid_dgrid_kernel", "grid_dx_kernel")):
+        return "single-grid warp kernels (csrc/warp_grid.cu)"
     # cuDNN's own engines (wgrad_alg*, dgrad_engine, fft / DSE, the FFT
     # convolutions' complex pointwise products) and cuBLAS / CUTLASS GEMMs
     if any(s in n for s in ("conv", "cudnn", "xmma", "implicit", "winograd", "fft",
@@ -84,11 +87,11 @@ def _device_profile(fn, iters):
 
 
 def profile_train(args, card):
-    from facevae_tpu_torch.config import Config
+    from facevae_tpu_torch.config import Config, ModelConfig
     from facevae_tpu_torch.train import create_train_state, train_step
-    out_path = args.out or "artifacts/profile_train.json"
+    out_path = args.out or f"artifacts/profile_train_{args.dtype}.json"
     dev = torch.device("cuda")
-    cfg = Config()
+    cfg = Config(model=ModelConfig(compute_dtype=args.dtype))
     size = cfg.model.image_size
     torch.cuda.reset_peak_memory_stats(dev)
     state = create_train_state(cfg, device=dev)
@@ -100,12 +103,13 @@ def profile_train(args, card):
     step_ms = _median_ms(lambda: train_step(state, batch, generator=g), args.iters)
     kernels, by_kind, busy_share = _device_profile(
         lambda: train_step(state, batch, generator=g), args.iters)
-    report = {"card": card, "batch": args.batch, "config": "ModelConfig() fp32, TF32 off",
+    config = f"ModelConfig() {args.dtype}, TF32 off"
+    report = {"card": card, "batch": args.batch, "config": config,
               "step_ms": step_ms, "frames_per_s": args.batch / step_ms * 1e3,
               "peak_memory_gib": torch.cuda.max_memory_allocated(dev) / 2 ** 30,
               "step_device_ms_by_kind": dict(by_kind), "step_device_busy_share": busy_share,
               "top_kernels": [{"name": n, "ms": ms, "calls": c} for n, ms, c in kernels[:40]]}
-    print(f"{card}; training step, batch {args.batch}, ModelConfig() fp32, TF32 off: "
+    print(f"{card}; training step, batch {args.batch}, {config}: "
           f"{step_ms:.1f} ms ({report['frames_per_s']:.3f} frames/s), peak memory "
           f"{report['peak_memory_gib']:.2f} GiB")
     for k, v in sorted(by_kind.items(), key=lambda kv: -kv[1]):
@@ -124,6 +128,8 @@ def main(argv=None):
     p.add_argument("--iters", type=int, default=5)
     p.add_argument("--out", default=None)
     p.add_argument("--train", action="store_true", help="profile the training step")
+    p.add_argument("--dtype", default="float32", choices=("float32", "bfloat16"),
+                   help="the training step's compute_dtype")
     args = p.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("needs a CUDA device")
