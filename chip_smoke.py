@@ -7,8 +7,8 @@ Phases, each fatal on failure (exit code 1, no result line):
   1. device   nvidia-smi name and power limit, torch / CUDA versions, the
               numerics switches (TF32 off).
   2. build    nvcc-builds every kernel library from csrc/ (warp_fwd,
-              warp_bwd, warp_grid), one nvcc per source, all started
-              together.
+              warp_bwd, warp_grid, probe_gather, probe_warp), one nvcc per
+              source, all started together.
   3. kernels  each kernel against its plain PyTorch version on the card, at
               the main paths' shapes (batch 8), fp32 and bf16, with
               far-out-of-volume, +-inf, last-index and exact-integer
@@ -57,6 +57,22 @@ Phases, each fatal on failure (exit code 1, no result line):
               multi-grid forward 3 times (MFE, Generator, TPS), its dgrid
               and dx kernels twice, the single-grid kernels and the plain
               versions never.  Prints the step time, frames/s, peak memory.
+  9. probes   the probe path: the run() of each of the four probes of
+              facevae_tpu_torch/probes/ (TPU kernels 7-10, csrc/probe_*.cu)
+              at the probe's own shapes, as its entry point calls it, with
+              the launch counts set to 0 before and read after (each kernel
+              at least once, the plain versions never); then each kernel
+              against its plain version on the same inputs: the gathers bit
+              for bit (all seven cases of probe 9), the warps within 1e-5 of
+              max|ref|, probe 8 at theta = 3 and 40 degrees in each mode
+              (bandonly only where every box fits); probe 8 against kernel 1
+              on the same samples (1e-5, and whether bit for bit), its boxes
+              staged where the host says they fit, and the probe's fit rates
+              1.00 / 0.08.  The device's time per call of kernel, plain
+              version and library call (10 calls captured in one CUDA
+              graph, the median CUDA-event time of 20 replays over 10: the
+              host's Python would otherwise outlast these kernels), and
+              the bounds.
 Then a JSON line of kernel results, the card's name and power limit, and the
 last line {"ok": true, "device": {...}}.  There is no CPU fallback: without
 a CUDA device the script fails.
@@ -89,6 +105,19 @@ KERNELS = {   # name -> (source, the TPU kernel it replaces)
     "grid_bwd_dx": ("facevae_tpu_torch/csrc/warp_grid.cu",
                     "facevae_tpu/ops/pallas/warp_mm.py:435"),     # _drows_kernel
 }
+# the probe path's kernels (phase 9): name -> (source, the TPU kernel it replaces)
+PROBE_KERNELS = {
+    "probe_warp": ("facevae_tpu_torch/csrc/probe_warp.cu",
+                   "tools/proto_pallas_warp.py:43"),           # warp_kernel (pallas_warp)
+    "probe_banded_warp": ("facevae_tpu_torch/csrc/probe_warp.cu",
+                          "tools/proto_banded_warp.py:120"),   # banded_fwd_kernel (run_banded)
+    "probe_gather": ("facevae_tpu_torch/csrc/probe_gather.cu",
+                     "tools/microbench_pallas_gather.py:25"),  # gather_kernel (run_case)
+    "probe_lane_gather": ("facevae_tpu_torch/csrc/probe_gather.cu",
+                          "tools/microbench_lane_gather.py:31"),  # main's kernel
+}
+PROBE_TOL = 1e-5                  # the probe warps vs plain and vs kernel 1, of max|ref|
+PROBE_FIT = {3.0: "1.00", 40.0: "0.08"}   # probe 8's ZB fit rates at its thetas
 N_BATCH, VOLUME = 8, (16, 64, 64)     # batch 8, D x H x W of the appearance volume
 ALL, BOTH = ("fwd", "bwd_dgrid", "bwd_dx"), ("float32", "bfloat16")
 # call sites: (site, kernel family, C, K1 or gps, volume, dtypes, halves, in
@@ -733,6 +762,116 @@ def _train(card, dtype):
     return r["launches"]
 
 
+def _probe_row(name, out, ref, r, plain_ms, site):
+    """One kernel-vs-plain comparison of phase 9 (out, ref: the two results
+    on the same inputs; r: the probe's run() figures)."""
+    import torch
+    torch.cuda.synchronize()
+    check(out.shape == ref.shape and out.dtype == ref.dtype,
+          f"{name} {site}: {tuple(out.shape)} {out.dtype} vs plain {tuple(ref.shape)} {ref.dtype}")
+    err = (out.float() - ref.float()).abs().max().item() if out.numel() else 0.0
+    scale = ref.float().abs().max().item() if ref.numel() else 0.0
+    return dict(name=name, site=site, err=err, scale=scale, equal=bool(torch.equal(out, ref)),
+                ms=r["ms"], plain_ms=plain_ms, library_ms=r["library_ms"],
+                bound_ms=r["bound_ms"], bound_by=r["bound_by"])
+
+
+def phase_probes():
+    """The probe path (each probe's run(), as its entry point calls it),
+    then each probe kernel against its plain version."""
+    import torch
+    from facevae_tpu_torch.probes import common as pc
+    from facevae_tpu_torch.probes import microbench_gather as p9
+    from facevae_tpu_torch.probes import microbench_lane_gather as p10
+    from facevae_tpu_torch.probes import proto_banded_warp as p8
+    from facevae_tpu_torch.probes import proto_warp as p7
+    mods = {"probe_warp": p7, "probe_banded_warp": p8, "probe_gather": p9,
+            "probe_lane_gather": p10}
+    dev = torch.device("cuda")
+    for m in mods.values():
+        m.reset_launch_counts()
+    r7, r8, r9, r10 = p7.run(dev), p8.run(dev), p9.run(dev), p10.run(dev)
+    torch.cuda.synchronize()
+    counts = {k: v for m in mods.values() for k, v in m.launches.items()}
+    print(f"[probes] launches on the probe path {counts}")
+    check(all(counts[k] > 0 for k in mods) and not any(counts[k + "_plain"] for k in mods),
+          f"probe path launches {counts}: want every probe kernel, no plain version")
+
+    volT, gx, gy, gz, shape = r7["args"]
+    row = _probe_row("probe_warp", p7.proto_warp_cuda(volT, gx, gy, gz, shape),
+                     p7.proto_warp_plain(volT, gx, gy, gz, shape), r7,
+                     pc.graph_ms(lambda: p7.proto_warp_plain(volT, gx, gy, gz, shape)),
+                     f"P={gx.shape[1]}")
+    rows = [row]
+    print(f"[probes] probe_warp: {r7['ms']:.4f} ms, plain {row['plain_ms']:.4f} ms, "
+          f"F.grid_sample {r7['library_ms']:.4f} ms, one-hot partner {r7['onehot_ms']:.4f} ms, "
+          f"bound {r7['bound_ms'] * 1e3:.3f} us; vs plain max|err| {row['err']:.3e} (max|ref| "
+          f"{row['scale']:.3f}); vs the probe's oracle {r7['err']:.4f} on the fp32 volume "
+          f"(bf16 table), {r7['err_exact']:.3e} on the bf16 volume")
+    check(row["err"] <= PROBE_TOL * row["scale"], f"probe_warp: {row['err']:.3e}")
+    check(r7["err_exact"] <= PROBE_TOL * r7["scale"],
+          f"probe_warp vs the oracle on the bf16 volume: {r7['err_exact']:.3e}")
+    for mode, num in r8["numerics"].items():
+        print(f"[probes] probe_banded_warp {mode} vs the probe's host oracle (n=0..1, theta=3): "
+              + ("not checked (a box exceeds the budget)" if num is None else
+                 f"max abs {num[0]:.3e}, rel {num[1]:.3e}"))
+        check(num is None or num[1] <= PROBE_TOL, f"probe_banded_warp {mode} vs host: {num}")
+    for t in r8["thetas"]:
+        args = t["args"]
+        plain = p8.banded_warp_plain(*args)
+        plain_ms = pc.graph_ms(lambda: p8.banded_warp_plain(*args))
+        fit = f"{t['probe_fit']:.2f}"
+        print(f"[probes] probe_banded_warp theta={t['theta']}: probe fit rate {fit} "
+              f"(ZB={p8.ZB}); kernel 1 {t['kernel1_ms']:.4f} ms on bf16 x, "
+              f"{t['kernel1_fp32_ms']:.4f} ms on fp32 x; nothing staged (blockwhen, budget "
+              f"1 row) {t['unstaged_ms']:.4f} ms; F.grid_sample "
+              f"{t['library_ms']:.4f} ms; bound {t['bound_ms']:.4f} ms ({t['bound_by']}); "
+              f"plain {plain_ms:.4f} ms")
+        check(fit == PROBE_FIT[t["theta"]], f"probe fit rate at theta={t['theta']}: {fit}")
+        for mode, m in t["modes"].items():
+            out = p8.banded_warp_cuda(*args, mode=mode)
+            exact = m["vs_kernel1"] is not None
+            row = _probe_row("probe_banded_warp", out, plain, dict(t, ms=m["ms"]), plain_ms,
+                             f"theta={t['theta']} {mode}")
+            row.update(mode=mode, exact=exact, staged=m["staged"])
+            rows.append(row)
+            k1 = m["vs_kernel1"]
+            print(f"[probes]   {mode}: {m['ms']:.4f} ms ({t['kernel1_ms'] / m['ms']:.2f}x kernel "
+                  f"1); boxes staged {m['staged']:.4f} (budget {p8.BUDGET} rows; as the "
+                  f"host reckons: {m['flags_match']}); vs plain "
+                  + (f"max|err| {row['err']:.3e} (max|ref| {row['scale']:.3f})" if exact else
+                     "not checked (bandonly, a box exceeds the budget)")
+                  + ("" if k1 is None else f"; vs kernel 1 fp32 max|err| {k1[0]:.3e}, bit for "
+                     f"bit {'yes' if k1[2] else 'no'}"))
+            check(m["flags_match"], f"{mode} theta={t['theta']} staged other boxes than "
+                                    "staged_flags reckons")
+            check(not exact or row["err"] <= PROBE_TOL * row["scale"],
+                  f"probe_banded_warp {mode} theta={t['theta']}: {row['err']:.3e}")
+            check(k1 is None or k1[0] <= PROBE_TOL * k1[1],
+                  f"probe_banded_warp {mode} vs kernel 1 theta={t['theta']}: {k1}")
+    for r in r9:
+        table, idx = r["args"]
+        row = _probe_row("probe_gather", p9.gather_cuda(table, idx), p9.gather_plain(table, idx),
+                         r, pc.graph_ms(lambda: p9.gather_plain(table, idx)), f"SxTxP={r['case']}")
+        rows.append(row)
+        print(f"[probes] probe_gather S,T,P={r['case']}: bit for bit vs plain {row['equal']}, "
+              f"vs numpy {r['equal']}; {r['ms'] * 1e3:.2f} us ({r['gbps']:.1f} GB/s), plain "
+              f"{row['plain_ms'] * 1e3:.2f} us, torch.gather {r['library_ms'] * 1e3:.2f} us, "
+              f"bound {r['bound_ms'] * 1e3:.3f} us")
+        check(row["equal"] and r["equal"], f"probe_gather {r['case']} differs")
+    data, idx = r10["args"]
+    row = _probe_row("probe_lane_gather", p10.lane_gather_cuda(data, idx),
+                     p10.lane_gather_plain(data, idx), r10,
+                     pc.graph_ms(lambda: p10.lane_gather_plain(data, idx)), f"NB={idx.shape[0]}")
+    rows.append(row)
+    print(f"[probes] probe_lane_gather: bit for bit vs plain {row['equal']}, vs numpy "
+          f"{r10['equal']}; {r10['ms']:.4f} ms ({r10['gbps']:.1f} GB/s), plain "
+          f"{row['plain_ms']:.4f} ms, torch.gather {r10['library_ms']:.4f} ms, bound "
+          f"{r10['bound_ms']:.4f} ms")
+    check(row["equal"] and r10["equal"], "probe_lane_gather differs")
+    return rows, counts
+
+
 def main() -> int:
     try:
         import torch
@@ -755,7 +894,8 @@ def main() -> int:
                          ("golden", phase_golden), ("serve", lambda: phase_serve(card)),
                          ("train_tiny", phase_train_tiny),
                          ("train", lambda: _train(card, "float32")),
-                         ("train_bf16", lambda: _train(card, "bfloat16"))):
+                         ("train_bf16", lambda: _train(card, "bfloat16")),
+                         ("probes", phase_probes)):
             t0 = time.perf_counter()
             out = fn()
             phase_s[name] = round(time.perf_counter() - t0, 1)
@@ -763,6 +903,8 @@ def main() -> int:
                 rows = out
             elif name in ("serve", "train", "train_bf16"):
                 paths[name] = out                  # each main path's launch counts
+            elif name == "probes":
+                probe_rows, probe_counts = out
     except PhaseError as e:
         print(f"FAIL: {e}", flush=True)
         return 1
@@ -779,6 +921,17 @@ def main() -> int:
             "bound_ms": sum(r["bound_ms"] for r in fp32), "bound_by": fp32[0]["bound_by"],
             "library_ms": sum(r["library_ms"] for r in fp32),
             "sites": [r["site"] for r in fp32]})
+    for name, (source, replaces) in PROBE_KERNELS.items():
+        # probe 8: its default mode (banded) at both thetas; probe 9: its seven cases
+        mine = [r for r in probe_rows if r["name"] == name and r.get("mode", "banded") == "banded"]
+        kernels.append({
+            "name": name, "route": "cuda", "source": source, "replaces": replaces,
+            "launches": probe_counts[name], "launches_by_path": {"probes": probe_counts[name]},
+            "max_abs_err": max(r["err"] for r in mine),
+            "ms": sum(r["ms"] for r in mine), "plain_ms": sum(r["plain_ms"] for r in mine),
+            "bound_ms": sum(r["bound_ms"] for r in mine), "bound_by": mine[0]["bound_by"],
+            "library_ms": sum(r["library_ms"] for r in mine),
+            "sites": [r["site"] for r in mine]})
     print(json.dumps({"kernels": kernels}))
     print(f"[done] {time.perf_counter() - t_all:.1f} s; phases {json.dumps(phase_s)}")
     print(smi())

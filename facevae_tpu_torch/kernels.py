@@ -2,11 +2,14 @@
 
 Each library is one ``csrc/<name>.cu`` file with a plain C interface
 (warp_fwd: the multi-grid warp forward; warp_bwd: its dgrid and dx kernels;
-warp_grid: the single-grid warp's forward, dgrid and dx kernels), which may
-include the shared ``csrc/*.cuh`` headers.  At first use it is compiled with
+warp_grid: the single-grid warp's forward, dgrid and dx kernels;
+probe_gather, probe_warp: the kernels of the four probes in probes/), which
+may include the shared ``csrc/*.cuh`` headers.  At first use it is compiled with
 nvcc for sm_90a into a shared library under ``_build/`` (named by a hash of
 the source, the headers and the flags, so an edit rebuilds)
-and loaded with ctypes; load_all starts one nvcc per source at once.
+and loaded with ctypes; load_all starts one nvcc per source at once;
+function gives one C function with its signature, launch calls it and
+raises on the cudaError_t it returns.
 Nothing else is built or fetched.  Nothing here runs at import time: the CPU
 tests import every module and have no nvcc.
 """
@@ -27,11 +30,12 @@ BUILD_DIR = _PKG / "_build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
-LIBRARIES = ("warp_fwd", "warp_bwd", "warp_grid")
+LIBRARIES = ("warp_fwd", "warp_bwd", "warp_grid", "probe_gather", "probe_warp")
 
 _lock = threading.Lock()           # guards _name_locks
 _name_locks = {}
 _libs = {}
+_functions = {}
 # name -> {"seconds": build time (0.0 when the library was already built),
 #          "ptxas": nvcc's register / spill report}
 build_info = {}
@@ -80,3 +84,23 @@ def load_all(names=LIBRARIES):
     """Build and load several libraries with one nvcc each, all at once."""
     with ThreadPoolExecutor(max_workers=len(names)) as pool:
         return dict(zip(names, pool.map(load, names)))
+
+
+def function(library: str, symbol: str, argtypes) -> ctypes._CFuncPtr:
+    """The C function ``symbol`` of csrc/<library>.cu (built at first use),
+    with its argument types; it returns a cudaError_t as an int."""
+    if (library, symbol) not in _functions:
+        fn = getattr(load(library), symbol)
+        fn.restype = ctypes.c_int
+        fn.argtypes = argtypes
+        _functions[library, symbol] = fn
+    return _functions[library, symbol]
+
+
+def launch(counts, name, fn, *args):
+    """Call a kernel's C function; raise on the cudaError_t it returns (0 is
+    success), else count the launch in counts[name]."""
+    err = fn(*args)
+    if err != 0:
+        raise RuntimeError(f"{name} kernel launch failed with cudaError_t {err}")
+    counts[name] += 1

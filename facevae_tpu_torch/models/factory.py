@@ -24,12 +24,13 @@ D_MODEL_NAMES = ("discriminator",)
 def build_models(cfg: ModelConfig, device=None,
                  generator: Optional[torch.Generator] = None,
                  names: Sequence[str] = G_MODEL_NAMES) -> Dict[str, nn.Module]:
-    """Instantiate the named nets on ``device``, initialized from
-    ``generator`` (default: seed 0 on that device) in G_MODEL_NAMES +
-    D_MODEL_NAMES order, and put them in eval mode.
+    """Instantiate the named nets on ``device`` (default: the card),
+    initialized from ``generator`` (default: seed 0 on that device) in
+    G_MODEL_NAMES + D_MODEL_NAMES order, and put them in eval mode.
 
     Raises on EFE variants other than conv5: they are not ported yet
     (ROADMAP Queue 1)."""
+    device = torch.device("cuda" if device is None else device)
     unknown = [n for n in names if n not in G_MODEL_NAMES + D_MODEL_NAMES]
     if unknown:
         raise ValueError(f"unknown nets {unknown}; the port builds "
@@ -62,7 +63,7 @@ def build_models(cfg: ModelConfig, device=None,
             use_weight_norm=cfg.disc_use_weight_norm, device=device),
     }
     if generator is None:
-        generator = torch.Generator(device=device or "cpu").manual_seed(0)
+        generator = torch.Generator(device=device).manual_seed(0)
     models = {}
     for name in G_MODEL_NAMES + D_MODEL_NAMES:
         if name in names:

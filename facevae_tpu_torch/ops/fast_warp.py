@@ -59,7 +59,6 @@ launches = {"warp_fwd": 0, "warp_fwd_plain": 0,
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _MAX_GRID_Y = 65535
-_fns = {}
 
 
 def reset_launch_counts():
@@ -248,15 +247,6 @@ _SIGNATURES = {
 }
 
 
-def _kernel_fn(name):
-    if name not in _fns:
-        from facevae_tpu_torch import kernels
-        lib, symbol, argtypes = _SIGNATURES[name]
-        fn = getattr(kernels.load(lib), symbol)
-        fn.restype = ctypes.c_int
-        fn.argtypes = argtypes
-        _fns[name] = fn
-    return _fns[name]
 
 
 def _check_x_cuda(name, x):
@@ -323,10 +313,8 @@ def _cpt(C, item, *tensors):
 
 
 def _launch(name, *args):
-    err = _kernel_fn(name)(*args)
-    if err != 0:
-        raise RuntimeError(f"{name} kernel launch failed with cudaError_t {err}")
-    launches[name] += 1
+    from facevae_tpu_torch import kernels
+    kernels.launch(launches, name, kernels.function(*_SIGNATURES[name]), *args)
 
 
 def _stream(x):

@@ -1,8 +1,9 @@
 """PyTorch port on the card: the CUDA warp kernels (the multi-grid forward
 and its backward's dgrid and dx halves; the single-grid forward, dgrid and
-dx) against their plain versions, the wrappers' refusals, the tiny golden
-pipeline through the forward kernels, and tiny fp32 and bf16 training steps
-through all of them.  Every test skips without a CUDA device.
+dx) and the four probe kernels (facevae_tpu_torch/probes/) against their
+plain versions, the wrappers' refusals, the tiny golden pipeline through
+the forward kernels, and tiny fp32 and bf16 training steps through all of
+them.  Every test skips without a CUDA device.
 
 This file imports no JAX, so it also runs on a machine without it:
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_cuda.py -q
@@ -17,6 +18,10 @@ from facevae_tpu_torch.config import tiny_config
 from facevae_tpu_torch.convert import load_jax_variables, nested_from_flat
 from facevae_tpu_torch.models import build_models
 from facevae_tpu_torch.ops import fast_warp
+from facevae_tpu_torch.probes import microbench_gather as p9
+from facevae_tpu_torch.probes import microbench_lane_gather as p10
+from facevae_tpu_torch.probes import proto_banded_warp as p8
+from facevae_tpu_torch.probes import proto_warp as p7
 from facevae_tpu_torch.train import InferencePipeline, create_train_state, train_step
 from torch_parity import assert_close, golden
 
@@ -230,3 +235,119 @@ def test_tiny_training_step_runs_through_the_kernels(dtype):
     assert {p.dtype for m in state.nets.values() for p in m.parameters()} == {torch.float32}
     assert {v.dtype for opt in (state.g_opt, state.d_opt) for st in opt.state.values()
             for v in st.values()} == {torch.float32}
+
+
+def test_build_models_defaults_to_the_card():
+    models = build_models(tiny_config().model, names=("generator",))
+    assert all(p.is_cuda for p in models["generator"].parameters())
+
+
+def _probe_coords(g, shape, size):
+    """Pixel coordinates [3][shape] over [-2, size + 1] with 10% integers and
+    2% NaN / +-inf / far-out probes."""
+    out = []
+    for s in size:
+        c = torch.rand(shape, generator=g, device="cuda") * (s + 3) - 2
+        pick = torch.rand(shape, generator=g, device="cuda")
+        c = torch.where(pick < 0.1, c.round(), c)
+        probes = torch.tensor([float("nan"), float("inf"), float("-inf"), 1e30, -1e6],
+                              device="cuda")
+        out.append(torch.where(pick > 0.98, probes[(pick * 1e4).long() % 5], c).contiguous())
+    return out
+
+
+def test_probe_gather_kernels_equal_plain():
+    """Probes 9 and 10: bit for bit, out-of-range indices read 0."""
+    g = torch.Generator(device="cuda").manual_seed(3)
+    table = torch.randn(5, 300, generator=g, device="cuda")
+    idx = torch.randint(-4, 304, (5, 77), generator=g, device="cuda", dtype=torch.int32)
+    p9.reset_launch_counts()
+    out = p9.gather(table, idx)
+    assert torch.equal(out, p9.gather_plain(table, idx))
+    data = torch.randn(24, 100, generator=g, device="cuda").bfloat16()
+    lidx = torch.randint(-3, 103, (6, 1, 40), generator=g, device="cuda", dtype=torch.int32)
+    p10.reset_launch_counts()
+    out = p10.lane_gather(data, lidx)
+    assert torch.equal(out, p10.lane_gather_plain(data, lidx))
+    assert p9.launches == {"probe_gather": 1, "probe_gather_plain": 1}
+    assert p10.launches == {"probe_lane_gather": 1, "probe_lane_gather_plain": 1}
+
+
+@pytest.mark.parametrize("C", [1, 2, 4])
+def test_probe_warp_kernel_matches_plain(C):
+    """Probe 7: 1e-5 of max|ref| (the same 8 products summed in another
+    order); NaN / inf / far coordinates weigh 0."""
+    g = torch.Generator(device="cuda").manual_seed(C)
+    D, H, W, P = 3, 5, 7, 1000
+    volT = torch.randn(C * W, D * H, generator=g, device="cuda")
+    coords = [c[None] for c in _probe_coords(g, (P,), (W, H, D))]
+    out = p7.proto_warp_cuda(volT, *coords, (D, H, W, C))
+    ref = p7.proto_warp_plain(volT, *coords, (D, H, W, C))
+    torch.cuda.synchronize()
+    assert out.shape == (P, C) and torch.isfinite(out).all()
+    assert_close(out, ref, 1e-5, f"probe_warp C={C}")
+
+
+@pytest.mark.parametrize("mode", p8.MODES)
+@pytest.mark.parametrize("shape", [(2, 4, 8, 8, 4, 3, 64), (1, 3, 6, 6, 1, 2, 27),
+                                   (2, 5, 4, 9, 2, 1, 20)])
+@pytest.mark.parametrize("budget", [1, 12, 1000])
+def test_probe_banded_warp_kernel_matches_plain(mode, shape, budget):
+    """Probe 8 in each mode: 1e-5 of max|ref| of the plain version and of
+    kernel 1 on the same values (bandonly only where every box fits); the
+    boxes it stages are those staged_flags reckons.  C*W = 6 and 18 take the
+    2-byte staging copy; a budget of 1000 rows needs more than 48 KB."""
+    N, D, H, W, C, K1, VB = shape
+    g = torch.Generator(device="cuda").manual_seed(sum(shape) + budget)
+    rows3 = torch.randn(N, D * H, C * W, generator=g, device="cuda").bfloat16()
+    z, y, x = torch.meshgrid(*(torch.arange(s, device="cuda") for s in (D, H, W)), indexing="ij")
+    coords = [(base.reshape(1, 1, -1).float() + torch.randn(N, K1, D * H * W, generator=g,
+                                                              device="cuda")).contiguous()
+              for base in (x, y, z)]
+    wild = _probe_coords(g, (N, K1, D * H * W), (W, H, D))
+    pick = torch.rand(N, K1, D * H * W, generator=g, device="cuda") < 0.05
+    coords = [torch.where(pick, w, c).contiguous() for c, w in zip(coords, wild)]
+    staged = torch.zeros(N, D * H * W // VB, K1, dtype=torch.uint8, device="cuda")
+    out = p8.banded_warp_cuda(rows3, *coords, (D, H, W, C), mode, VB, budget, staged)
+    ref = p8.banded_warp_plain(rows3, *coords, (D, H, W, C), mode, VB, budget)
+    kernel1 = fast_warp.warp_multi_pixel_cuda(p8.rows3_to_x(rows3, (D, H, W, C)).float(),
+                                              *coords, (D, H, W))
+    torch.cuda.synchronize()
+    host = p8.staged_flags(*(c.cpu().numpy() for c in coords[1:]), D, H, VB, budget, mode)
+    np.testing.assert_array_equal(staged.bool().cpu().numpy(), host)
+    assert out.shape == ref.shape and torch.isfinite(out).all()
+    if mode != "bandonly" or host.all():
+        assert_close(out, ref, 1e-5, f"{mode} vs plain")
+        assert_close(out, kernel1.reshape(out.shape), 1e-5, f"{mode} vs kernel 1")
+
+
+def test_probe_wrappers_refuse_what_the_kernels_do_not_take():
+    cuda = torch.device("cuda")
+    table = torch.zeros(2, 8, device=cuda)
+    with pytest.raises(TypeError):
+        p9.gather_cuda(table.double(), torch.zeros(2, 3, dtype=torch.int32, device=cuda))
+    with pytest.raises(ValueError, match="lies on"):
+        p9.gather_cuda(table, torch.zeros(2, 3, dtype=torch.int32))
+    with pytest.raises(ValueError, match="idx"):
+        p9.gather_cuda(table, torch.zeros(3, 3, dtype=torch.int32, device=cuda))
+    data = torch.zeros(4, 16, dtype=torch.bfloat16, device=cuda)
+    with pytest.raises(ValueError, match="VB % 8"):
+        p10.lane_gather_cuda(data, torch.zeros(2, 1, 12, dtype=torch.int32, device=cuda))
+    with pytest.raises(TypeError):
+        p10.lane_gather_cuda(data.float(), torch.zeros(2, 1, 8, dtype=torch.int32, device=cuda))
+    c = [torch.zeros(1, 10, device=cuda) for _ in range(3)]
+    with pytest.raises(ValueError, match="C in"):
+        p7.proto_warp_cuda(torch.zeros(3 * 4, 6, device=cuda), *c, (2, 3, 4, 3))
+    with pytest.raises(ValueError, match="contiguous"):
+        p7.proto_warp_cuda(torch.zeros(6, 16, device=cuda).t(), *c, (2, 3, 4, 4))
+    rows3 = torch.zeros(1, 16, 32, dtype=torch.bfloat16, device=cuda)
+    cg = [torch.zeros(1, 2, 128, device=cuda) for _ in range(3)]
+    with pytest.raises(ValueError, match="shared memory"):
+        p8.banded_warp_cuda(rows3, *cg, (4, 4, 8, 4), vb=64, budget=10 ** 6)
+    with pytest.raises(ValueError, match="staged"):
+        p8.banded_warp_cuda(rows3, *cg, (4, 4, 8, 4), vb=64,
+                            staged=torch.zeros(1, 2, 3, dtype=torch.uint8, device=cuda))
+    with pytest.raises(TypeError):
+        p8.banded_warp_cuda(rows3.float(), *cg, (4, 4, 8, 4), vb=64)
+    with pytest.raises(ValueError, match="mode"):
+        p8.banded_warp_cuda(rows3, *cg, (4, 4, 8, 4), mode="full", vb=64)

@@ -33,7 +33,7 @@ def env():
     m = cfg.model
     variables = golden.g_variables(cfg, seed=3)
     jmodels = build_jax_models(m)
-    tmodels = build_models(m)
+    tmodels = build_models(m, device="cpu")
     for name, model in tmodels.items():
         load_jax_variables(model, variables[name])
     rs = np.random.RandomState(7)
@@ -97,7 +97,7 @@ def _mutate(variables, how):
                                         ("shape", "shape"),
                                         ("collection", "collections")])
 def test_bridge_is_strict(env, how, match):
-    model = build_models(env["cfg"].model, names=("generator",))["generator"]
+    model = build_models(env["cfg"].model, "cpu", names=("generator",))["generator"]
     with pytest.raises(ValueError, match=match):
         load_jax_variables(model, _mutate(env["variables"]["generator"], how))
 
@@ -121,15 +121,15 @@ def test_build_models_refuses_what_is_not_ported(env):
     """The dormant EFE variants and VAE sampling are not ported; unknown
     names are refused; the discriminator and the training forms are."""
     with pytest.raises(NotImplementedError):
-        build_models(dataclasses.replace(env["cfg"].model, efe_variant="conv4"),
+        build_models(dataclasses.replace(env["cfg"].model, efe_variant="conv4"), "cpu",
                      names=("efe",))
     with pytest.raises(ValueError, match="unknown"):
-        build_models(env["cfg"].model, names=("hopenet",))
-    efe = build_models(env["cfg"].model, names=("efe",))["efe"]
+        build_models(env["cfg"].model, "cpu", names=("hopenet",))
+    efe = build_models(env["cfg"].model, "cpu", names=("efe",))["efe"]
     img, _, kp = env["inputs"]["efe"]
     with pytest.raises(NotImplementedError, match="train_vae"):
         efe(torch.from_numpy(img), None, torch.from_numpy(kp), train_vae=True)
-    nets = build_models(env["cfg"].model, names=("generator", "discriminator"))
+    nets = build_models(env["cfg"].model, "cpu", names=("generator", "discriminator"))
     out = nets["generator"].train()(*[torch.from_numpy(a) for a in env["inputs"]["generator"]])
     logits, features = nets["discriminator"].train()(out, torch.from_numpy(kp))
     assert logits.shape[-1] == 1 and len(features) == 4

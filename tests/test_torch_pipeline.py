@@ -26,7 +26,7 @@ REL = 1e-4
 
 
 def _port(cfg, variables, **kw):
-    models = build_models(cfg.model)
+    models = build_models(cfg.model, device="cpu")
     for name, m in models.items():
         load_jax_variables(m, variables[name])
     return InferencePipeline(cfg, models, **kw)
