@@ -13,20 +13,27 @@ Phases, each fatal on failure (exit code 1, no result line):
               the main paths' shapes (batch 8), fp32 and bf16, with
               far-out-of-volume, +-inf, last-index and exact-integer
               coordinates.  The multi-grid warp (forward, dgrid, dx) at MFE
-              x[8,16,64,64,4] K1=15 and Generator x[8,16,64,64,32] K1=1, and
-              its forward at the bf16 TPS warp x[8,1,256,256,3] K1=1; the
+              x[8,16,64,64,4] K1=15 on three coordinate sets (the noisy
+              affine set, and MFE's own sparse-motion coordinates from
+              seeded keypoints and head poses, clean and with the probes:
+              facevae_tpu_torch/warp_inputs.py) and Generator
+              x[8,16,64,64,32] K1=1, and its forward at the bf16 TPS warp
+              x[8,1,256,256,3] K1=1; the
               single-grid warp (forward, dgrid, dx) at the Generator shape
               (gps=1, a deformation-like grid) and the reference-form MFE
               shape x[8,16,64,64,4] (gps=16 grids from create_sparse_motions
-              on seeded keypoints).  Median CUDA-event times of the kernel,
-              its plain version and F.grid_sample's forward / backward (a
-              yardstick the port never calls, the source repeated per grid)
-              over 20 runs after a warm-up, each kernel's bound from its
-              bytes, and the dx kernels' run-to-run max difference (their
-              atomics add in varying order).  Then the single-grid forward
-              against the multi-grid forward on the same samples at both
-              single-grid shapes: within 1e-5 of max|ref|, and whether they
-              agree bit for bit.
+              on seeded keypoints).  The device time per call of the kernel
+              and of F.grid_sample's forward / backward in x's dtype (a
+              yardstick the port never calls, the source repeated per grid):
+              10 calls in one CUDA graph, median of 20 replays; the kernel's
+              and its plain version's median CUDA-event time over 20 calls;
+              each kernel's bound from its bytes, and the dx kernels'
+              run-to-run max difference (their atomics add in varying
+              order).  Per multi-grid site and dtype the bytes of kernel
+              1's stores.  Then the single-grid forward against the
+              multi-grid forward on the same samples at both single-grid
+              shapes: within 1e-5 of max|ref|, and whether they agree bit
+              for bit.
   4. golden   the port's encode_source / drive_frame / frontalize_frame at
               tiny_config on the card, with the JAX weights and outputs of
               tests/data/torch_golden_tiny.npz (tools/make_torch_golden.py).
@@ -125,6 +132,8 @@ ALL, BOTH = ("fwd", "bwd_dgrid", "bwd_dx"), ("float32", "bfloat16")
 # paths' sites: MFE and the Generator for the multi-grid kernels (the
 # Generator's runs at bf16), the Generator for the single-grid ones.
 SITES = (("MFE", "warp", 4, 15, VOLUME, BOTH, ALL, True),
+         ("MFE sparse motion", "warp", 4, 15, VOLUME, BOTH, ALL, False),
+         ("MFE sparse motion + probes", "warp", 4, 15, VOLUME, ("float32",), ALL, False),
          ("Generator", "warp", 32, 1, VOLUME, BOTH, ALL, True),
          ("TPS", "warp", 3, 1, (1, 256, 256), ("bfloat16",), ("fwd",), False),
          ("Generator", "grid", 32, 1, VOLUME, BOTH, ALL, True),
@@ -212,44 +221,14 @@ def phase_build():
     print(f"[build] all libraries in {time.perf_counter() - t0:.2f} s (in parallel)")
 
 
-def _coords(N, K1, D, H, W, g):
-    """Pixel coordinates [3][N,K1,NV] as a motion field makes them (an affine
-    map of the grid plus noise, reaching past the border), with exact
-    integers, the border values and far-out-of-volume probes mixed in."""
-    import torch
-    dev = "cuda"
-    z, y, x = torch.meshgrid(torch.arange(D, device=dev), torch.arange(H, device=dev),
-                             torch.arange(W, device=dev), indexing="ij")
-    base = torch.stack([x, y, z]).reshape(3, 1, 1, -1).float()       # [3,1,1,NV]
-    size = torch.tensor([W, H, D], device=dev, dtype=torch.float32).reshape(3, 1, 1, 1)
-    scale = 1 + 0.2 * (torch.rand(3, N, K1, 1, generator=g, device=dev) - 0.5)
-    shift = 0.2 * size * (torch.rand(3, N, K1, 1, generator=g, device=dev) - 0.5)
-    noise = torch.randn(3, N, K1, base.shape[-1], generator=g, device=dev)
-    c = (base - size / 2) * scale + size / 2 + shift + noise
-    return _probes(c, size, g)
-
-
-def _probes(c, size, g):
-    """Pixel coordinates c [3,...] with 10% exact integers, 0.5% the last
-    index and 0.5% far-out, border and +-inf values mixed in."""
-    import torch
-    dev = c.device
-    pick = torch.rand(c.shape, generator=g, device=dev)
-    c = torch.where(pick < 0.1, torch.round(c), c)                  # exact integers
-    probes = torch.tensor([-1e30, -1e6, -1.0, -0.5, 0.0, 1e-3, 1e6, 1e30,
-                           float("inf"), float("-inf")], device=dev)
-    idx = torch.randint(0, probes.numel(), c.shape, generator=g, device=dev)
-    c = torch.where(pick > 0.995, probes[idx], c)                   # far out / border
-    c = torch.where((pick > 0.99) & (pick <= 0.995), size - 1, c)   # last index
-    return [c[a].contiguous() for a in range(3)]
-
-
 def _normalized(coords, D, H, W):
     """Pixel coordinate planes [3][N,K1,NV] -> the normalized grid
-    [N*K1,D,H,W,3] that samples the same points."""
+    [N*K1,D,H,W,3] that samples the same points (on an axis of size 1 every
+    normalized value samples pixel 0: 0 there)."""
     import torch
     N, K1 = coords[0].shape[:2]
-    grid = torch.stack([c * (2.0 / (s - 1)) - 1.0 for c, s in zip(coords, (W, H, D))], -1)
+    grid = torch.stack([c * (2.0 / (s - 1)) - 1.0 if s > 1 else torch.zeros_like(c)
+                        for c, s in zip(coords, (W, H, D))], -1)
     return grid.reshape(N * K1, D, H, W, 3).contiguous()
 
 
@@ -258,6 +237,7 @@ def _reference_form_grid(N, K, D, H, W, g):
     create_sparse_motions on seeded keypoints and head poses, with the
     probes mixed in (in pixel units)."""
     import torch
+    from facevae_tpu_torch.warp_inputs import with_probes
     from facevae_tpu_torch.ops import create_sparse_motions
     from facevae_tpu_torch.ops.geometry import pose_rotation
     dev = "cuda"
@@ -268,7 +248,7 @@ def _reference_form_grid(N, K, D, H, W, g):
     motions = create_sparse_motions(fs, kp_s, kp_d, Rs, Rd).reshape(-1, 3)
     size = torch.tensor([W, H, D], device=dev, dtype=torch.float32).reshape(3, 1)
     px = (motions.t() + 1.0) * 0.5 * (size - 1)
-    return _normalized([c.reshape(N, K + 1, -1) for c in _probes(px, size, g)], D, H, W)
+    return _normalized([c.reshape(N, K + 1, -1) for c in with_probes(px, size, g)], D, H, W)
 
 
 def _bound_ms(half, N, D, H, W, C, K1, item):
@@ -288,27 +268,28 @@ def _bound_ms(half, N, D, H, W, C, K1, item):
 
 def _library_calls(x, grid, gout):
     """F.grid_sample (3D, bilinear, zeros, align_corners=True) on the same
-    samples: x [N,D,H,W,C] repeated per grid as NCDHW, the normalized grid
-    [G,D,H,W,3], the cotangent [G,D,H,W,C]; its forward, and its backward
-    for the grid alone and for the source alone."""
+    samples, in x's dtype: x [N,D,H,W,C] repeated per grid as NCDHW, the
+    normalized grid [G,D,H,W,3] (rounded to bf16 for a bf16 x, as
+    F.grid_sample takes one dtype: a yardstick of time, never compared), the
+    cotangent [G,D,H,W,C]; its forward, and its backward (the one aten call
+    autograd makes, so a CUDA graph can hold it) for the grid alone and for
+    the source alone."""
     import torch
     import torch.nn.functional as F
     N, D, H, W, C = x.shape
     G = grid.shape[0]
-    src = (x.float().permute(0, 4, 1, 2, 3)[:, None].expand(N, G // N, C, D, H, W)
-           .reshape(G, C, D, H, W).contiguous().requires_grad_())
-    grid = torch.nan_to_num(grid, posinf=1e6, neginf=-1e6).requires_grad_()
-    g = gout.float().permute(0, 4, 1, 2, 3).contiguous()
-    out = F.grid_sample(src, grid, mode="bilinear", padding_mode="zeros", align_corners=True)
+    src = (x.permute(0, 4, 1, 2, 3)[:, None].expand(N, G // N, C, D, H, W)
+           .reshape(G, C, D, H, W).contiguous())
+    grid = torch.nan_to_num(grid, posinf=1e6, neginf=-1e6).to(x.dtype)
+    g = gout.to(x.dtype).permute(0, 4, 1, 2, 3).contiguous()
 
-    @torch.no_grad()
-    def fwd():
-        return F.grid_sample(src, grid, mode="bilinear", padding_mode="zeros",
-                             align_corners=True)
+    def bwd(mask):
+        # interpolation 0 = bilinear, padding 0 = zeros, align_corners
+        return lambda: torch.ops.aten.grid_sampler_3d_backward(g, src, grid, 0, 0, True, mask)
 
-    return {"fwd": fwd,
-            "bwd_dgrid": lambda: torch.autograd.grad(out, grid, g, retain_graph=True),
-            "bwd_dx": lambda: torch.autograd.grad(out, src, g, retain_graph=True)}
+    return {"fwd": lambda: F.grid_sample(src, grid, mode="bilinear", padding_mode="zeros",
+                                         align_corners=True),
+            "bwd_dgrid": bwd([False, True]), "bwd_dx": bwd([True, False])}
 
 
 def _site_calls(family, x, coords, grid, gout, gps, spatial):
@@ -356,21 +337,22 @@ def _cross_check(x, grid, gps):
 
 def phase_kernels():
     import torch
+    from facevae_tpu_torch.warp_inputs import noisy_coords, sparse_motion_coords
+    from facevae_tpu_torch.probes.common import graph_ms
     g = torch.Generator(device="cuda").manual_seed(0)
     rows, cross = [], []
     N = N_BATCH
     for site, family, C, K1, (D, H, W), dtypes, halves, in_json in SITES:
         spatial = (D, H, W)
+        coords = grid = None
         if site == "MFE reference form":
             grid = _reference_form_grid(N, K1 - 1, D, H, W, g)
-            coords = None
         else:
-            coords = _coords(N, K1, D, H, W, g)
-            grid = None
+            coords = (sparse_motion_coords(N, K1, D, H, W, g, probes=site.endswith("probes"))
+                      if site.startswith("MFE sparse motion") else noisy_coords(N, K1, D, H, W, g))
             if site == "TPS":                      # a D=1 frame: z is exactly 0
                 coords[2] = torch.zeros_like(coords[2])
-            else:                                  # the same samples, normalized
-                grid = _normalized(coords, D, H, W)
+            grid = _normalized(coords, D, H, W)    # the same samples, normalized
         for dname in dtypes:
             dtype = getattr(torch, dname)
             x = torch.randn(N, D, H, W, C, generator=g, device="cuda").to(dtype)
@@ -379,7 +361,7 @@ def phase_kernels():
             gout = (gout_gm if family == "grid" else
                     gout_gm.reshape(N, K1, -1, C).permute(0, 2, 1, 3).reshape(N, D, H, W, K1 * C))
             calls = _site_calls(family, x, coords, grid, gout, K1, spatial)
-            library = _library_calls(x, grid, gout_gm) if dname == "float32" else {}
+            library = _library_calls(x, grid, gout_gm)
             for name, (kernel, plain) in calls.items():
                 half = name.split("_", 1)[1]
                 if half not in halves:
@@ -396,21 +378,26 @@ def phase_kernels():
                 scale = max(r.float().abs().max().item() for r in ref)
                 row = dict(name=name, site=site, dtype=dname, C=C, K1=K1, shape=(N, D, H, W, C),
                            err=err, scale=scale, tol=KERNEL_TOL[half][dname] * scale,
-                           ms=cuda_ms(kernel), plain_ms=cuda_ms(plain), in_json=in_json,
-                           library_ms=cuda_ms(library[half]) if half in library else None)
+                           ms=graph_ms(kernel), event_ms=cuda_ms(kernel),
+                           plain_ms=cuda_ms(plain), in_json=in_json,
+                           library_ms=graph_ms(library[half]))
                 row["bound_ms"], row["bound_by"] = _bound_ms(half, N, D, H, W, C, K1,
                                                              x.element_size())
                 if half == "bwd_dx":
                     row["rerun_diff"] = (kernel().float() - out[0].float()).abs().max().item()
                 rows.append(row)
-                lib = "" if row["library_ms"] is None else f", F.grid_sample {row['library_ms']:.4f}"
                 rerun = (f"; run-to-run max|diff| {row['rerun_diff']:.3e}"
                          if "rerun_diff" in row else "")
                 k = "gps" if family == "grid" else "K1"
                 print(f"[kernels] {name} {site} x[{N},{D},{H},{W},{C}] {k}={K1} {dname}: "
                       f"max|err| {err:.3e} (limit {row['tol']:.3e}, max|ref| {scale:.3f}); "
-                      f"kernel {row['ms']:.4f} ms, plain {row['plain_ms']:.4f}{lib}, "
+                      f"device {row['ms']:.4f} ms (event {row['event_ms']:.4f}), plain "
+                      f"{row['plain_ms']:.4f}, F.grid_sample {row['library_ms']:.4f}, "
                       f"bound {row['bound_ms']:.4f} ms ({row['bound_by']}){rerun}")
+            if family == "warp":
+                print(f"[kernels]   kernel 1 {site} {dname}: stores "
+                      f"{N * D * H * W * K1 * C * x.element_size()} B"
+                      f"{' through its shared-memory tile' if K1 > 1 else ''}")
             if family == "grid" and dname == "float32":
                 err, scale, same = _cross_check(x, grid, K1)
                 cross.append((site, err, scale, same))
@@ -917,7 +904,8 @@ def main() -> int:
             "launches": sum(p[name] for p in paths.values()),
             "launches_by_path": {k: p[name] for k, p in paths.items()},
             "max_abs_err": max(r["err"] for r in fp32),
-            "ms": sum(r["ms"] for r in fp32), "plain_ms": sum(r["plain_ms"] for r in fp32),
+            "ms": sum(r["ms"] for r in fp32), "event_ms": sum(r["event_ms"] for r in fp32),
+            "plain_ms": sum(r["plain_ms"] for r in fp32),
             "bound_ms": sum(r["bound_ms"] for r in fp32), "bound_by": fp32[0]["bound_by"],
             "library_ms": sum(r["library_ms"] for r in fp32),
             "sites": [r["site"] for r in fp32]})

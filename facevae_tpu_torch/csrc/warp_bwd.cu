@@ -32,14 +32,16 @@
 // A^T @ (w_x * gout) accumulated in a VMEM-resident block over the voxel grid
 // axis.  A GPU gathers the 8 corners directly and scatters with atomics.
 //
-// What bounds them on an H100: bytes and atomics.  At the MFE call site
-// (batch 8, 16x64x64 volume, K1=15, C=4, fp32) the dgrid kernel reads 94.4 MB
-// of coordinates, 125.8 MB of gout and an 8.4 MB volume (its corner reads hit
-// L2) and writes 94.4 MB of dgrid: 323 MB, 96 us at 3.35 TB/s.  The dx kernel
-// reads the coordinates and gout and writes the 8.4 MB dx: 229 MB, 68 us, plus
-// 8 corners x C / 4 float4 atomics per (n, k, v): 63M of them.  At the
-// Generator site (C=32, K1=1) gout and x are 67 MB each.  PERF.md holds the
-// measured times.
+// What bounds them on an H100: bytes for dgrid, atomics for dx.  At the MFE
+// call site (batch 8, 16x64x64 volume, K1=15, C=4, fp32) the dgrid kernel
+// reads 94.4 MB of coordinates, 125.8 MB of gout and an 8.4 MB volume (its
+// corner reads hit L2) and writes 94.4 MB of dgrid: 323 MB, 96 us at 3.35
+// TB/s.  The dx kernel reads the coordinates and gout and writes the 8.4 MB
+// dx: 229 MB, 68 us, plus 8 corners x C / 4 float4 atomics per (n, k, v):
+// 63M of them (each dx voxel receives ~8 x K1 = 120), 33.5M at the bf16
+// Generator site (C=32, K1=1).  The L2's atomic units, not the bytes, set
+// its pace: on MFE's sparse-motion coordinates the dx kernel runs at ~20% of
+// its byte bound, on scattered ones at ~10%.
 //
 // Design: one thread per (n, k, v); blockIdx.y = n * K1 + k, so coordinate
 // reads coalesce.  Each thread walks the 8 corners and, inside each, the C
@@ -47,6 +49,14 @@
 // owns its three outputs (no atomics).  The dx kernel adds into fp32 with
 // atomicAdd on float4 / float2 where the vector allows it (sm_90), so the
 // order of the sums, and the last bits of dx, vary from run to run.
+//
+// Summing a block's corners in a shared-memory box first and flushing each
+// box voxel with one atomic was built and measured (PERF.md §6): sm_90a
+// has no native shared-memory fp32 add (it compiles to a compare-and-swap
+// loop), and with integer sums the shared-memory adds, zeroing, flush and
+// lower occupancy cost what the fewer global atomics saved: within 1.2% of
+// this kernel at the trained step's own MFE call, slower where the box
+// rarely fits.  So dx keeps this design.
 #include "warp_common.cuh"
 
 namespace {

@@ -20,47 +20,53 @@
 // feed the MXU.  On the GPU the 8 corners are a direct gather, so none of
 // that carries over.
 //
-// What bounds it on an H100: bytes.  Per output voxel and k the kernel reads
-// 12 B of coordinates and writes C values; the 8 corner reads hit L2 (a
-// 64x64x16 volume is 1 MB per sample at C=4 fp32, 8 MB at C=32, and
-// neighbouring voxels share corners).  At batch 8, the MFE call (K1=15, C=4)
-// moves ~94 MB of coordinates in and ~126 MB out; the Generator call (K1=1,
-// C=32) reads a 67 MB volume and writes 67 MB.  At 3.35 TB/s both are a few
-// tens of microseconds; PERF.md holds the measured times.
+// What bounds it on an H100: bytes, and how the stores land.  Per output voxel
+// and k the kernel reads 12 B of coordinates and writes C values; the 8 corner
+// reads hit L2 (a 64x64x16 volume is 1 MB per sample at C=4 fp32, 8 MB at
+// C=32, and neighbouring voxels share corners).  At batch 8 the MFE call
+// (K1=15, C=4) moves ~94 MB of coordinates in and ~126 MB out (fp32): 68 us
+// at 3.35 TB/s.  A thread per (n, k, voxel), as this kernel first was, stores
+// its C values 240 B from its neighbour's in the k-major output, so each
+// warp's 32 stores touch 32 sectors, each half written: on the TPU probe's
+// samples that cost 0.135 ms of 0.349 (PERF.md, kernel 8 against kernel 1).
 //
-// Design: one thread per (n, k, output voxel v, vector of CPT channels), a
-// 16-byte load per corner where C allows it (C=4 fp32: one float4; C=32 fp32:
-// 8 threads of float4 per voxel).  Threads of a block run over consecutive
-// (v, channel vector) of one (n, k) row, so coordinate reads coalesce and a
-// corner's channel vectors are contiguous.  A pure gather: no atomics, so the
-// result is deterministic.
+// Design, K1 > 1 (the tile kernel): one block per (n, tile of VT consecutive
+// output voxels; VT = 64 unless a row passes 768 B, tile_voxels), doing all
+// K1 grids.  Its threads walk the tile's (k, v,
+// channel vector) items with the channel vector fastest, then v, so
+// coordinate reads coalesce as before and each item gathers its 8 corners in
+// the same order with the same weight products (the result stays bit for bit
+// equal to warp_grid.cu's forward and to kernel 8).  Each result goes into a
+// [VT][K1*C] tile in shared memory whose row stride, counted in store
+// vectors, is odd, so the 8 (16 B) or 16 (8 B) stores of a phase hit
+// distinct banks.  After one barrier the block writes the tile out as VT*K1*C
+// contiguous values in the widest units (16, 8, 4 or 2 B) the row length
+// allows: every warp store fills whole sectors.
+//
+// The corners are read from global memory (L2).  Staging the union box of a
+// block's source voxels in shared memory, as kernel 8 (probe_warp.cu) does,
+// was measured and lost at MFE: the K1 grids are shifted by different
+// keypoints, so the union covers most of the volume and few boxes fit
+// (PERF.md §6).
+//
+// K1 = 1 (the Generator and the TPS frame): the output row of a voxel is its
+// C values, so a thread per (n, voxel, channel vector) already stores
+// contiguously; that kernel (the first design) runs there.  Pure gathers: no
+// atomics, so the result is deterministic.
 #include "warp_common.cuh"
 
 namespace {
 
 using namespace facevae_warp;
 
+// acc[0:CPT] = the trilinear sample at (px, py, pz) of CPT channels of the
+// volume src [D, H, W, C] (already offset to the channel vector), corners in
+// the order z, y, x.
 template <typename T, int CPT>
-__global__ void __launch_bounds__(kThreads)
-warp_fwd_kernel(const T* __restrict__ x, const float* __restrict__ gx,
-                const float* __restrict__ gy, const float* __restrict__ gz,
-                T* __restrict__ out, int D, int H, int W, int C, int K1, int NV) {
-  const int cvs = C / CPT;
-  const long long t = (long long)blockIdx.x * kThreads + threadIdx.x;
-  if (t >= (long long)NV * cvs) return;  // ragged tail
-  const int v = (int)(t / cvs);
-  const int cv = (int)(t - (long long)v * cvs);
-  const int nk = blockIdx.y;  // n * K1 + k
-  const int n = nk / K1;
-  const int k = nk - n * K1;
-
-  const long long ci = (long long)nk * NV + v;
-  const float px = gx[ci], py = gy[ci], pz = gz[ci];
+__device__ __forceinline__ void gather(const T* __restrict__ src, float px, float py, float pz,
+                                       int D, int H, int W, int C, float* acc) {
   const float fx = floorf(px), fy = floorf(py), fz = floorf(pz);
   const float tx = px - fx, ty = py - fy, tz = pz - fz;
-
-  const T* xn = x + (long long)n * D * H * W * C + cv * CPT;
-  float acc[CPT];
 #pragma unroll
   for (int i = 0; i < CPT; ++i) acc[i] = 0.f;
 
@@ -81,28 +87,167 @@ warp_fwd_kernel(const T* __restrict__ x, const float* __restrict__ gx,
         if (!(xc >= 0.f && xc <= (float)(W - 1))) continue;
         const float w = wzy * (dx ? tx : 1.f - tx);
         const long long off = (((long long)(int)zc * H + (int)yc) * W + (int)xc) * C;
-        const Pack<T, CPT> p = *reinterpret_cast<const Pack<T, CPT>*>(xn + off);
+        const Pack<T, CPT> p = *reinterpret_cast<const Pack<T, CPT>*>(src + off);
 #pragma unroll
         for (int i = 0; i < CPT; ++i) acc[i] += w * to_float(p.v[i]);
       }
     }
   }
-
-  Pack<T, CPT> o;
-#pragma unroll
-  for (int i = 0; i < CPT; ++i) store(&o.v[i], acc[i]);
-  *reinterpret_cast<Pack<T, CPT>*>(out + ((long long)n * NV + v) * K1 * C +
-                                   (long long)k * C + cv * CPT) = o;
 }
 
 template <typename T, int CPT>
-void launch(const void* x, const float* gx, const float* gy, const float* gz,
-            void* out, int N, int D, int H, int W, int C, int K1, int NV,
-            cudaStream_t stream) {
-  const long long threads = (long long)NV * (C / CPT);
-  const dim3 grid((unsigned)((threads + kThreads - 1) / kThreads), (unsigned)(N * K1));
-  warp_fwd_kernel<T, CPT><<<grid, kThreads, 0, stream>>>(
-      static_cast<const T*>(x), gx, gy, gz, static_cast<T*>(out), D, H, W, C, K1, NV);
+__device__ __forceinline__ Pack<T, CPT> pack(const float* acc) {
+  Pack<T, CPT> o;
+#pragma unroll
+  for (int i = 0; i < CPT; ++i) store(&o.v[i], acc[i]);
+  return o;
+}
+
+// K1 = 1: one thread per (n, output voxel v, vector of CPT channels)
+template <typename T, int CPT>
+__global__ void __launch_bounds__(kThreads)
+warp_fwd_kernel(const T* __restrict__ x, const float* __restrict__ gx,
+                const float* __restrict__ gy, const float* __restrict__ gz,
+                T* __restrict__ out, int D, int H, int W, int C, int NV) {
+  const int cvs = C / CPT;
+  const long long t = (long long)blockIdx.x * kThreads + threadIdx.x;
+  if (t >= (long long)NV * cvs) return;  // ragged tail
+  const int v = (int)(t / cvs);
+  const int cv = (int)(t - (long long)v * cvs);
+  const int n = blockIdx.y;
+  const long long ci = (long long)n * NV + v;
+  float acc[CPT];
+  gather<T, CPT>(x + (long long)n * D * H * W * C + cv * CPT, gx[ci], gy[ci], gz[ci], D, H, W,
+                 C, acc);
+  *reinterpret_cast<Pack<T, CPT>*>(out + ci * C + cv * CPT) = pack<T, CPT>(acc);
+}
+
+template <int U>
+struct Unit;
+template <>
+struct Unit<16> {
+  using type = uint4;
+};
+template <>
+struct Unit<8> {
+  using type = uint2;
+};
+template <>
+struct Unit<4> {
+  using type = unsigned;
+};
+template <>
+struct Unit<2> {
+  using type = unsigned short;
+};
+
+// dst[0 : rows*rowbytes] <- rows of rowbytes bytes, `stride` apart in the
+// tile, copied in units of U bytes (U divides rowbytes and stride)
+template <int U>
+__device__ __forceinline__ void copy_out(const unsigned char* __restrict__ tile, int stride,
+                                         unsigned char* __restrict__ dst, int rowbytes, int rows) {
+  using V = typename Unit<U>::type;
+  const int per_row = rowbytes / U;
+  const int total = rows * per_row;
+  for (int j = threadIdx.x; j < total; j += kThreads) {
+    const int r = j / per_row;
+    reinterpret_cast<V*>(dst)[j] =
+        *reinterpret_cast<const V*>(tile + r * stride + (j - r * per_row) * U);
+  }
+}
+
+// K1 > 1: one block per (n, tile of vt output voxels), all K1 grids; grid
+// (ceil(NV / vt), N).  Dynamic shared memory: the output tile, vt rows of
+// `stride` bytes.
+template <typename T, int CPT>
+__global__ void __launch_bounds__(kThreads)
+warp_fwd_tile_kernel(const T* __restrict__ x, const float* __restrict__ gx,
+                     const float* __restrict__ gy, const float* __restrict__ gz,
+                     T* __restrict__ out, int D, int H, int W, int C, int K1, int NV,
+                     int vt_max, int stride, int unit) {
+  extern __shared__ int4 smem[];
+  unsigned char* tile = reinterpret_cast<unsigned char*>(smem);
+  const int n = blockIdx.y;
+  const long long v0 = (long long)blockIdx.x * vt_max;
+  const int vt = (int)min((long long)vt_max, NV - v0);
+  const int cvs = C / CPT;
+  const int rowbytes = K1 * C * (int)sizeof(T);
+  const long long cbase = (long long)n * K1 * NV + v0;  // + k * NV + v
+  const T* src = x + (long long)n * D * H * W * C;
+  const int per_k = vt * cvs;
+  for (int i = threadIdx.x; i < K1 * per_k; i += kThreads) {
+    const int k = i / per_k;
+    const int r = i - k * per_k;
+    const int v = r / cvs;
+    const int cv = r - v * cvs;
+    const long long ci = cbase + (long long)k * NV + v;
+    float acc[CPT];
+    gather<T, CPT>(src + cv * CPT, gx[ci], gy[ci], gz[ci], D, H, W, C, acc);
+    *reinterpret_cast<Pack<T, CPT>*>(tile + v * stride + (k * C + cv * CPT) * (int)sizeof(T)) =
+        pack<T, CPT>(acc);
+  }
+  __syncthreads();
+
+  unsigned char* dst = reinterpret_cast<unsigned char*>(out + (long long)(n * (long long)NV + v0) *
+                                                                   K1 * C);
+  switch (unit) {
+    case 16: copy_out<16>(tile, stride, dst, rowbytes, vt); break;
+    case 8: copy_out<8>(tile, stride, dst, rowbytes, vt); break;
+    case 4: copy_out<4>(tile, stride, dst, rowbytes, vt); break;
+    default: copy_out<2>(tile, stride, dst, rowbytes, vt); break;
+  }
+}
+
+// The tile's row stride in bytes: the row rounded up to whole store vectors,
+// plus one vector where that count is even (an odd count of vectors between
+// rows puts a phase's stores on distinct banks).
+int tile_stride(int rowbytes, int vec) {
+  int units = (rowbytes + vec - 1) / vec;
+  if (units % 2 == 0) ++units;
+  return units * vec;
+}
+
+// output voxels per block: 64 (15 KB of tile at MFE fp32, so several blocks
+// share an SM), halved while the tile's rows exceed 48 KB
+int tile_voxels(int rowbytes) {
+  int vt = 64;
+  while (vt > 1 && (long long)vt * rowbytes > 48 * 1024) vt /= 2;
+  return vt;
+}
+
+// the widest copy unit (16, 8, 4, 2 bytes) that divides both
+int copy_unit(int rowbytes, int stride) {
+  for (int u = 16; u > 2; u /= 2)
+    if (rowbytes % u == 0 && stride % u == 0) return u;
+  return 2;
+}
+
+template <typename T, int CPT>
+int launch(const void* x, const float* gx, const float* gy, const float* gz, void* out, int N,
+           int D, int H, int W, int C, int K1, int NV, cudaStream_t stream) {
+  if (K1 == 1) {
+    const long long threads = (long long)NV * (C / CPT);
+    const dim3 grid((unsigned)((threads + kThreads - 1) / kThreads), (unsigned)N);
+    warp_fwd_kernel<T, CPT><<<grid, kThreads, 0, stream>>>(
+        static_cast<const T*>(x), gx, gy, gz, static_cast<T*>(out), D, H, W, C, NV);
+    return (int)cudaGetLastError();
+  }
+  const int rowbytes = K1 * C * (int)sizeof(T);
+  const int vt = tile_voxels(rowbytes);
+  const int stride = tile_stride(rowbytes, CPT * (int)sizeof(T));
+  const long long smem = (long long)vt * stride;
+  if (smem > 227 * 1024) return (int)cudaErrorInvalidValue;
+  auto kernel = warp_fwd_tile_kernel<T, CPT>;
+  if (smem > 48 * 1024) {  // above the default a kernel must ask for it
+    const cudaError_t e =
+        cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (e != cudaSuccess) return (int)e;
+  }
+  const dim3 grid((unsigned)((NV + vt - 1) / vt), (unsigned)N);
+  kernel<<<grid, kThreads, (size_t)smem, stream>>>(static_cast<const T*>(x), gx, gy, gz,
+                                                   static_cast<T*>(out), D, H, W, C, K1, NV, vt,
+                                                   stride, copy_unit(rowbytes, stride));
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -111,11 +256,12 @@ void launch(const void* x, const float* gx, const float* gy, const float* gz,
 // cpt * sizeof(T) <= 16 with x and out aligned to it).  Returns the
 // cudaError_t of the launch (0 = success).
 extern "C" int facevae_warp_fwd(const void* x, const float* gx, const float* gy,
-                                const float* gz, void* out, int N, int D, int H,
-                                int W, int C, int K1, int NV, int dtype, int cpt,
-                                void* stream) {
-  return facevae_warp::dispatch(dtype, cpt, [&](auto t, auto c) {
-    launch<std::remove_pointer_t<decltype(t)>, decltype(c)::value>(
+                                const float* gz, void* out, int N, int D, int H, int W, int C,
+                                int K1, int NV, int dtype, int cpt, void* stream) {
+  int err = (int)cudaSuccess;
+  const int dispatched = facevae_warp::dispatch(dtype, cpt, [&](auto t, auto c) {
+    err = launch<std::remove_pointer_t<decltype(t)>, decltype(c)::value>(
         x, gx, gy, gz, out, N, D, H, W, C, K1, NV, static_cast<cudaStream_t>(stream));
   });
+  return err != (int)cudaSuccess ? err : dispatched;
 }

@@ -38,7 +38,9 @@ with atomics, so the last bits of dx vary from run to run: with
 torch.use_deterministic_algorithms(True) a CUDA backward that needs dx
 raises, as PyTorch's own grid_sample backward does.  The JAX package's
 z-banding, channel grouping and VMEM planners exist for the TPU's memory and
-matrix unit and are not ported.
+matrix unit and are not ported.  The multi-grid forward at K1 > 1 runs one
+block per (n, tile of output voxels) that writes its k-major output tile
+through shared memory (csrc/warp_fwd.cu).
 
 Each path counts its launches in ``launches`` (plain integers), so a run can
 show which path the served or trained graph took.

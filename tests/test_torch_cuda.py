@@ -1,7 +1,9 @@
 """PyTorch port on the card: the CUDA warp kernels (the multi-grid forward
 and its backward's dgrid and dx halves; the single-grid forward, dgrid and
 dx) and the four probe kernels (facevae_tpu_torch/probes/) against their
-plain versions, the wrappers' refusals, the tiny golden pipeline through
+plain versions, kernels 1 and 3 at the MFE and Generator shapes on the
+coordinate sets of facevae_tpu_torch/warp_inputs.py, the wrappers'
+refusals, the tiny golden pipeline through
 the forward kernels, and tiny fp32 and bf16 training steps through all of
 them.  Every test skips without a CUDA device.
 
@@ -13,6 +15,7 @@ import pytest
 import torch
 
 import dataclasses
+import functools
 
 from facevae_tpu_torch.config import tiny_config
 from facevae_tpu_torch.convert import load_jax_variables, nested_from_flat
@@ -191,6 +194,82 @@ def test_grid_wrappers_refuse_what_they_cannot_take():
         fast_warp.grid_sample_3d_fast(x, gg, 2).sum().backward()
     finally:
         torch.use_deterministic_algorithms(False)
+
+
+def _site(site, cset, dtype, seed):
+    """Kernels 1 and 3 at a main-path shape, batch cut to 2: MFE x
+    [2,16,64,64,4] K1=15 or the Generator's x [2,16,64,64,32] K1=1, on MFE's
+    sparse-motion coordinates (clean, or with exact integer, last-index,
+    far-out and +-inf probes) or the noisy affine ones with the probes
+    (warp_inputs' sets)."""
+    from facevae_tpu_torch.warp_inputs import noisy_coords, sparse_motion_coords
+    C, K1 = {"MFE": (4, 15), "Generator": (32, 1)}[site]
+    D, H, W = 16, 64, 64
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    coords = (sparse_motion_coords(2, K1, D, H, W, g, probes=cset == "sparse+probes")
+              if cset.startswith("sparse") else noisy_coords(2, K1, D, H, W, g))
+    x = torch.randn(2, D, H, W, C, generator=g, device="cuda").to(dtype)
+    gout = torch.randn(2, D, H, W, K1 * C, generator=g, device="cuda").to(dtype)
+    return x, coords, gout, (D, H, W)
+
+
+SITE_CASES = [("MFE", "sparse"), ("MFE", "sparse+probes"), ("MFE", "noisy"),
+              ("Generator", "noisy")]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("site, cset", SITE_CASES)
+def test_kernels_1_and_3_match_plain_at_call_sites(site, cset, dtype):
+    """Kernel 1 (the tile kernel at K1=15) and kernel 3 against their plain
+    versions: 1e-5 of max|ref| in fp32, 1e-2 in bf16."""
+    x, coords, gout, spatial = _site(site, cset, dtype, 11)
+    tol = 1e-5 if dtype == torch.float32 else 1e-2
+    out = fast_warp.warp_multi_pixel_cuda(x, *coords, spatial)
+    ref = fast_warp.warp_multi_pixel_plain(x, *coords, spatial)
+    rdx = fast_warp.warp_multi_pixel_bwd_plain(x, *coords, gout, spatial, need_dgrid=False)[0]
+    dx = fast_warp.warp_multi_pixel_bwd_cuda(x, *coords, gout, spatial, need_dgrid=False)[0]
+    torch.cuda.synchronize()
+    assert dx.dtype == dtype and torch.isfinite(dx).all()
+    assert_close(dx.float(), rdx.float(), tol, "dx")
+    assert out.dtype == dtype and torch.isfinite(out).all()
+    assert_close(out.float(), ref.float(), tol, "forward")
+
+
+def test_dx_with_a_non_finite_cotangent():
+    """A cotangent holding an inf and a NaN: the dx voxels those samples
+    touch are non-finite where the plain version's are, and every other
+    voxel is within 1e-5 of it."""
+    x, coords, gout, spatial = _site("MFE", "sparse", torch.float32, 16)
+    # two samples of source 0 with all 8 corners inside the volume (the plain
+    # version would also add 0 * nan at the index it clamps outer corners to)
+    inside = functools.reduce(torch.logical_and, [(c[0] > 0.5) & (c[0] < size - 1.5)
+                                                  for c, size in zip(coords, (64, 64, 16))])
+    (k0, v0), (k1, v1) = inside.nonzero()[[0, -1]].tolist()
+    gout = gout.clone()
+    per_k = gout[0].view(-1, 15, 4)
+    per_k[v0, k0, 0], per_k[v1, k1, 2] = float("nan"), float("inf")
+    dx = fast_warp.warp_multi_pixel_bwd_cuda(x, *coords, gout, spatial, need_dgrid=False)[0]
+    ref = fast_warp.warp_multi_pixel_bwd_plain(x, *coords, gout, spatial, need_dgrid=False)[0]
+    torch.cuda.synchronize()
+    bad = ~torch.isfinite(ref)
+    assert bad.any() and torch.equal(~torch.isfinite(dx), bad)
+    assert_close(torch.where(bad, 0.0, dx), torch.where(bad, 0.0, ref), 1e-5, "finite part")
+
+
+def test_tile_kernel_agrees_with_the_grid_kernel_at_mfe():
+    """Kernel 1's tile kernel at K1 = 15 and kernel 4 at gps = 15 on the same
+    samples (x [2,16,64,64,4]): bit for bit."""
+    x, coords, _, spatial = _site("MFE", "sparse+probes", torch.float32, 14)
+    N, K1, C = 2, 15, 4
+    grid = torch.stack([c * (2.0 / (s - 1)) - 1.0 for c, s in zip(coords, (64, 64, 16))], -1)
+    grid = grid.reshape(N * K1, *spatial, 3).contiguous()
+    single = fast_warp.grid_sample_3d_cuda(x, grid, K1)
+    pix = [((grid[..., a] + 1.0) * 0.5 * (s - 1)).reshape(N, K1, -1).contiguous()
+           for a, s in enumerate((64, 64, 16))]
+    multi = fast_warp.warp_multi_pixel_cuda(x, *pix, spatial)
+    multi = multi.reshape(N, -1, K1, C).permute(0, 2, 1, 3).reshape(single.shape)
+    torch.cuda.synchronize()
+    assert torch.equal(multi, single)
 
 
 def test_golden_pipeline_runs_through_the_kernel():
