@@ -30,10 +30,12 @@ Phases, each fatal on failure (exit code 1, no result line):
               each kernel's bound from its bytes, and the dx kernels'
               run-to-run max difference (their atomics add in varying
               order).  Per multi-grid site and dtype the bytes of kernel
-              1's stores.  Then the single-grid forward against the
-              multi-grid forward on the same samples at both single-grid
-              shapes: within 1e-5 of max|ref|, and whether they agree bit
-              for bit.
+              1's stores (through a shared-memory tile at K1 > 1) and of
+              the cotangent kernel 2 reads.  Then the single-grid forward
+              against the multi-grid forward on the same samples at both
+              single-grid shapes (fp32) and at the TPS frame (bf16, where
+              kernel 1 runs its pixel kernel): within 1e-5 of max|ref|, and
+              whether they agree bit for bit.
   4. golden   the port's encode_source / drive_frame / frontalize_frame at
               tiny_config on the card, with the JAX weights and outputs of
               tests/data/torch_golden_tiny.npz (tools/make_torch_golden.py).
@@ -221,36 +223,6 @@ def phase_build():
     print(f"[build] all libraries in {time.perf_counter() - t0:.2f} s (in parallel)")
 
 
-def _normalized(coords, D, H, W):
-    """Pixel coordinate planes [3][N,K1,NV] -> the normalized grid
-    [N*K1,D,H,W,3] that samples the same points (on an axis of size 1 every
-    normalized value samples pixel 0: 0 there)."""
-    import torch
-    N, K1 = coords[0].shape[:2]
-    grid = torch.stack([c * (2.0 / (s - 1)) - 1.0 if s > 1 else torch.zeros_like(c)
-                        for c, s in zip(coords, (W, H, D))], -1)
-    return grid.reshape(N * K1, D, H, W, 3).contiguous()
-
-
-def _reference_form_grid(N, K, D, H, W, g):
-    """The reference form's K+1 grids per source [N*(K+1),D,H,W,3]:
-    create_sparse_motions on seeded keypoints and head poses, with the
-    probes mixed in (in pixel units)."""
-    import torch
-    from facevae_tpu_torch.warp_inputs import with_probes
-    from facevae_tpu_torch.ops import create_sparse_motions
-    from facevae_tpu_torch.ops.geometry import pose_rotation
-    dev = "cuda"
-    kp_s, kp_d = (torch.rand(N, K, 3, generator=g, device=dev) * 1.2 - 0.6 for _ in range(2))
-    Rs, Rd = (pose_rotation(*(torch.rand(N, generator=g, device=dev) - 0.5 for _ in range(3)))
-              for _ in range(2))
-    fs = torch.empty(N, D, H, W, 1, device=dev)                        # shape only
-    motions = create_sparse_motions(fs, kp_s, kp_d, Rs, Rd).reshape(-1, 3)
-    size = torch.tensor([W, H, D], device=dev, dtype=torch.float32).reshape(3, 1)
-    px = (motions.t() + 1.0) * 0.5 * (size - 1)
-    return _normalized([c.reshape(N, K + 1, -1) for c in with_probes(px, size, g)], D, H, W)
-
-
 def _bound_ms(half, N, D, H, W, C, K1, item):
     """Least time for a kernel's work on an H100: each input read once and
     each output written once over 3.35 TB/s, against its fp32 operations
@@ -337,7 +309,8 @@ def _cross_check(x, grid, gps):
 
 def phase_kernels():
     import torch
-    from facevae_tpu_torch.warp_inputs import noisy_coords, sparse_motion_coords
+    from facevae_tpu_torch.warp_inputs import (noisy_coords, normalized, reference_form_grid,
+                                               sparse_motion_coords)
     from facevae_tpu_torch.probes.common import graph_ms
     g = torch.Generator(device="cuda").manual_seed(0)
     rows, cross = [], []
@@ -346,13 +319,13 @@ def phase_kernels():
         spatial = (D, H, W)
         coords = grid = None
         if site == "MFE reference form":
-            grid = _reference_form_grid(N, K1 - 1, D, H, W, g)
+            grid = reference_form_grid(N, K1 - 1, D, H, W, g)
         else:
             coords = (sparse_motion_coords(N, K1, D, H, W, g, probes=site.endswith("probes"))
                       if site.startswith("MFE sparse motion") else noisy_coords(N, K1, D, H, W, g))
             if site == "TPS":                      # a D=1 frame: z is exactly 0
                 coords[2] = torch.zeros_like(coords[2])
-            grid = _normalized(coords, D, H, W)    # the same samples, normalized
+            grid = normalized(coords, D, H, W)     # the same samples, normalized
         for dname in dtypes:
             dtype = getattr(torch, dname)
             x = torch.randn(N, D, H, W, C, generator=g, device="cuda").to(dtype)
@@ -395,13 +368,15 @@ def phase_kernels():
                       f"{row['plain_ms']:.4f}, F.grid_sample {row['library_ms']:.4f}, "
                       f"bound {row['bound_ms']:.4f} ms ({row['bound_by']}){rerun}")
             if family == "warp":
-                print(f"[kernels]   kernel 1 {site} {dname}: stores "
-                      f"{N * D * H * W * K1 * C * x.element_size()} B"
-                      f"{' through its shared-memory tile' if K1 > 1 else ''}")
-            if family == "grid" and dname == "float32":
+                nbytes = N * D * H * W * K1 * C * x.element_size()
+                tiled = " through its shared-memory tile" if K1 > 1 else ""
+                print(f"[kernels]   kernel 1 {site} {dname}: stores {nbytes} B{tiled}"
+                      + (f"; kernel 2 reads a cotangent of {nbytes} B, k-major"
+                         if "bwd_dgrid" in halves else ""))
+            if (family == "grid" and dname == "float32") or site == "TPS":
                 err, scale, same = _cross_check(x, grid, K1)
                 cross.append((site, err, scale, same))
-                print(f"[kernels] single-grid vs multi-grid forward, {site} gps=K1={K1} fp32: "
+                print(f"[kernels] single-grid vs multi-grid forward, {site} gps=K1={K1} {dname}: "
                       f"max|err| {err:.3e} (limit {CROSS_TOL * scale:.3e}); "
                       f"bit for bit: {'yes' if same else 'no'}")
     for r in rows:

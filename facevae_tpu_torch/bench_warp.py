@@ -1,6 +1,7 @@
-"""Device times of the multi-grid warp kernels (TPU kernels 1-3:
-csrc/warp_fwd.cu, csrc/warp_bwd.cu) at the main paths' call sites, batch 8,
-for comparing two checkouts on one card.
+"""Device times of the warp kernels (TPU kernels 1-3, the multi-grid warp:
+csrc/warp_fwd.cu, csrc/warp_bwd.cu; kernels 4-6, the single-grid warp:
+csrc/warp_grid.cu) at the main paths' call sites, batch 8, for comparing
+two checkouts on one card.
 
     python facevae_tpu_torch/bench_warp.py              # this checkout
     python facevae_tpu_torch/bench_warp.py --root DIR   # the checkout at DIR
@@ -11,18 +12,22 @@ torch.Generator on the card in a fixed order, and only the wrappers'
 shared arguments are used.  Run the two checkouts in turns in one call
 (parent, change, change, parent) and compare within it.
 
-Sites: MFE (x [8,16,64,64,4], K1=15) on four coordinate sets, Generator (x
-[8,16,64,64,32], K1=1) and the TPS frame (x [8,1,256,256,3], K1=1, forward
-only, bf16), fp32 and bf16.  The sets: ``noisy``, ``sparse`` and
-``sparse+probes`` (facevae_tpu_torch/warp_inputs.py), and ``step``: the
+Multi-grid sites: MFE (x [8,16,64,64,4], K1=15) on four coordinate sets,
+Generator (x [8,16,64,64,32], K1=1) and the TPS frame (x [8,1,256,256,3],
+K1=1, forward only, bf16), fp32 and bf16.  The sets: ``noisy``, ``sparse``
+and ``sparse+probes`` (facevae_tpu_torch/warp_inputs.py), and ``step``: the
 source features and coordinates of MFE's warp call in the first training
 step of ModelConfig() at batch 8 in the case's dtype (seeded random weights
 and images, as facevae_tpu_torch/bench.py builds the step), the call the
-trained main path makes.  The inputs come from this checkout's
-warp_inputs.py, so both checkouts get the same ones.  Per case one JSON
-line: the device time per call of the forward, dgrid and dx kernels
-(probes/common.py:graph_ms: 10 calls in one CUDA graph, median of 20
-replays), under the card's name and power limit.  Needs a CUDA card.
+trained main path makes.  Single-grid sites: the Generator (gps=1, the
+noisy set normalized) and the reference-form MFE call (x [8,16,64,64,4],
+gps=16, warp_inputs.reference_form_grid), fp32 and bf16.  The inputs come
+from this checkout's warp_inputs.py, so both checkouts get the same ones.
+Per case one JSON line: the device time per call of the forward, dgrid and
+dx kernels (probes/common.py:graph_ms: 10 calls in one CUDA graph, median
+of 20 replays), a digest of the inputs and of the forward's and dgrid's
+outputs (equal digests on equal inputs: equal bits), under the card's name
+and power limit.  Needs a CUDA card.
 """
 from __future__ import annotations
 
@@ -32,19 +37,24 @@ if __name__ == "__main__":
     sys.path.pop(0)   # run by path: this directory's modules would shadow top-level names
 
 import argparse
+import hashlib
 import importlib.util
 import json
 import subprocess
 from pathlib import Path
 
 N_BATCH, VOLUME = 8, (16, 64, 64)
-# (site, C, K1, volume, coordinate set, dtypes, halves)
-CASES = (("MFE", 4, 15, VOLUME, "noisy", ("float32", "bfloat16"), ("fwd", "dgrid", "dx")),
-         ("MFE", 4, 15, VOLUME, "sparse", ("float32", "bfloat16"), ("fwd", "dgrid", "dx")),
-         ("MFE", 4, 15, VOLUME, "sparse+probes", ("float32",), ("fwd", "dgrid", "dx")),
-         ("Generator", 32, 1, VOLUME, "noisy", ("float32", "bfloat16"), ("fwd", "dgrid", "dx")),
-         ("TPS", 3, 1, (1, 256, 256), "noisy", ("bfloat16",), ("fwd",)),
-         ("MFE", 4, 15, VOLUME, "step", ("float32", "bfloat16"), ("fwd", "dgrid", "dx")))
+ALL = ("fwd", "dgrid", "dx")
+# (site, kernel family, C, K1 or gps, volume, coordinate set, dtypes, halves)
+CASES = (("MFE", "warp", 4, 15, VOLUME, "noisy", ("float32", "bfloat16"), ALL),
+         ("MFE", "warp", 4, 15, VOLUME, "sparse", ("float32", "bfloat16"), ALL),
+         ("MFE", "warp", 4, 15, VOLUME, "sparse+probes", ("float32",), ALL),
+         ("Generator", "warp", 32, 1, VOLUME, "noisy", ("float32", "bfloat16"), ALL),
+         ("TPS", "warp", 3, 1, (1, 256, 256), "noisy", ("bfloat16",), ("fwd",)),
+         ("MFE", "warp", 4, 15, VOLUME, "step", ("float32", "bfloat16"), ALL),
+         ("Generator", "grid", 32, 1, VOLUME, "noisy", ("float32", "bfloat16"), ALL),
+         ("MFE reference form", "grid", 4, 16, VOLUME, "reference form",
+          ("float32", "bfloat16"), ALL))
 
 
 def _inputs_module():
@@ -90,18 +100,42 @@ def step_inputs(dtype):
     return seen[0]
 
 
-def case_inputs(site, C, K1, volume, cset, g):
-    """The coordinates of one drawn case (drawn once for its dtypes)."""
+def case_inputs(site, family, C, K1, volume, cset, g):
+    """The coordinates (multi-grid) or normalized grid (single-grid) of one
+    drawn case (drawn once for its dtypes)."""
     import torch
     inputs = _inputs_module()
     D, H, W = volume
+    if cset == "reference form":
+        return inputs.reference_form_grid(N_BATCH, K1 - 1, D, H, W, g)
     if cset.startswith("sparse"):
         return inputs.sparse_motion_coords(N_BATCH, K1, D, H, W, g,
                                            probes=cset == "sparse+probes")
     coords = inputs.noisy_coords(N_BATCH, K1, D, H, W, g)
     if site == "TPS":                              # a D=1 frame: z is exactly 0
         coords[2] = torch.zeros_like(coords[2])
-    return coords
+    return inputs.normalized(coords, D, H, W) if family == "grid" else coords
+
+
+def digest(*tensors):
+    """A short hash of the tensors' bytes."""
+    import torch
+    h = hashlib.sha1()
+    for t in tensors:
+        h.update(t.detach().contiguous().view(-1).view(torch.uint8).cpu().numpy().tobytes())
+    return h.hexdigest()[:16]
+
+
+def _calls(fw, family, x, inp, gout, K1, volume):
+    """half -> the kernel call of one case"""
+    if family == "warp":
+        return {"fwd": lambda: fw.warp_multi_pixel_cuda(x, *inp, volume),
+                "dgrid": lambda: fw.warp_multi_pixel_bwd_cuda(x, *inp, gout, volume, False)[1],
+                "dx": lambda: fw.warp_multi_pixel_bwd_cuda(x, *inp, gout, volume,
+                                                           need_dgrid=False)[0]}
+    return {"fwd": lambda: fw.grid_sample_3d_cuda(x, inp, K1),
+            "dgrid": lambda: fw.grid_sample_3d_bwd_cuda(x, inp, gout, K1, False)[1],
+            "dx": lambda: fw.grid_sample_3d_bwd_cuda(x, inp, gout, K1, need_dgrid=False)[0]}
 
 
 def smi():
@@ -111,29 +145,33 @@ def smi():
 
 
 def run():
-    """One dict per (case, dtype): the halves' device ms per call."""
+    """One dict per (case, dtype): the halves' device ms per call and the
+    digests."""
     import torch
     from facevae_tpu_torch.ops import fast_warp as fw
     from facevae_tpu_torch.probes.common import graph_ms
     g = torch.Generator(device="cuda").manual_seed(0)
     rows = []
-    for site, C, K1, volume, cset, dtypes, halves in CASES:
+    for site, family, C, K1, volume, cset, dtypes, halves in CASES:
         if cset != "step":
-            coords = case_inputs(site, C, K1, volume, cset, g)
+            inp = case_inputs(site, family, C, K1, volume, cset, g)
         for dname in dtypes:
             dtype = getattr(torch, dname)
             if cset == "step":
-                x, coords = step_inputs(dname)
+                x, inp = step_inputs(dname)
             else:
                 x = torch.randn(N_BATCH, *volume, C, generator=g, device="cuda").to(dtype)
-            gout = torch.randn(N_BATCH, *volume, K1 * C, generator=g, device="cuda").to(dtype)
-            calls = {
-                "fwd": lambda: fw.warp_multi_pixel_cuda(x, *coords, volume),
-                "dgrid": lambda: fw.warp_multi_pixel_bwd_cuda(x, *coords, gout, volume, False),
-                "dx": lambda: fw.warp_multi_pixel_bwd_cuda(x, *coords, gout, volume,
-                                                           need_dgrid=False)}
-            row = dict(site=site, set=cset, dtype=dname, C=C, K1=K1)
+            gout = (torch.randn(N_BATCH, *volume, K1 * C, generator=g, device="cuda")
+                    if family == "warp" else
+                    torch.randn(N_BATCH * K1, *volume, C, generator=g, device="cuda")).to(dtype)
+            calls = _calls(fw, family, x, inp, gout, K1, volume)
+            row = dict(site=site, family=family, set=cset, dtype=dname, C=C, K1=K1)
             row.update({f"{h}_ms": graph_ms(calls[h]) for h in halves})
+            row["in_digest"] = digest(x, *(inp if family == "warp" else (inp,)), gout)
+            for h in halves:
+                if h != "dx":                      # dx adds with atomics: its bits vary
+                    out = calls[h]()
+                    row[f"{h}_digest"] = digest(*(out if isinstance(out, tuple) else (out,)))
             rows.append(row)
     return rows
 

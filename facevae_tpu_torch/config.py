@@ -1,6 +1,7 @@
 """Configuration tree of the port: the same dataclasses, fields and defaults
 as facevae_tpu/config.py, kept here so the port imports nothing of the JAX
-package.  tests/test_torch_config.py holds the two copies equal.
+package.  tests/test_torch_ops.py::test_config_copy_matches_the_jax_package
+holds the two copies equal.
 
 ModelConfig() is the reference's full 256x256 model (K=15 keypoints, D=16
 depth planes, C=32 appearance channels); tiny_config() the small one the
@@ -53,7 +54,7 @@ class ModelConfig:
     use_weight_norm: bool = False    # spectral norm on the non-GAN nets
 
     # compute dtype of the conv stacks; params and BN statistics stay fp32.
-    # The port runs fp32 only so far (the bf16 step is not ported).
+    # The port's step runs "float32" and "bfloat16" (train/objective.py).
     compute_dtype: str = "float32"
     # rematerialization of the big nets in the JAX step; the port does not
     # honour it yet (PERF.md gives its peak memory without it)

@@ -19,6 +19,10 @@ load_jax_train_state carries a whole JAX train state across (g_params,
 d_params, c_params, teachers, batch_stats, spectral), net by net through
 load_jax_variables.  The teachers (Hopenet, the perceptual loss's VGG stacks)
 come this way: the port never draws teacher weights of its own for parity.
+
+A JAX leaf or collection with no name in the map raises UnmappedLeaf, both a
+ValueError and a KeyError (the teacher files of losses/pretrained.py raise
+KeyError for a key with no leaf, as the JAX package does).
 """
 from __future__ import annotations
 
@@ -64,11 +68,15 @@ def _torch_kernel(k: np.ndarray) -> np.ndarray:
     raise ValueError(f"unexpected kernel rank {k.ndim}")
 
 
+class UnmappedLeaf(KeyError, ValueError):
+    """A JAX leaf or variable collection that the name map does not know."""
+
+
 def state_dict_from_jax(variables: Mapping[str, Any]) -> Dict[str, np.ndarray]:
     """Map one net's JAX variables to a {state_dict key: numpy array} dict."""
     collections = set(variables) - {"params", "batch_stats", "spectral"}
     if collections:
-        raise ValueError(f"unknown variable collections {sorted(collections)}")
+        raise UnmappedLeaf(f"unknown variable collections {sorted(collections)}")
     out: Dict[str, np.ndarray] = {}
     kernels: Dict[Tuple[str, ...], np.ndarray] = {}
 
@@ -85,7 +93,7 @@ def state_dict_from_jax(variables: Mapping[str, Any]) -> Dict[str, np.ndarray]:
         for path, a in _leaves(variables.get(col, {})):
             mod, leaf = path[:-1], path[-1]
             if leaf not in leaf_names[col]:
-                raise ValueError(f"unmapped JAX leaf {col}/{'/'.join(path)}")
+                raise UnmappedLeaf(f"unmapped JAX leaf {col}/{'/'.join(path)}")
             if col == "params" and leaf == "kernel":
                 kernels[mod] = a
                 a = _torch_kernel(a)

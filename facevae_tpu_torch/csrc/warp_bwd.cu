@@ -50,6 +50,12 @@
 // atomicAdd on float4 / float2 where the vector allows it (sm_90), so the
 // order of the sums, and the last bits of dx, vary from run to run.
 //
+// The dgrid kernel reads gout k-major: 16 B at 240 B intervals at MFE fp32,
+// once per corner.  Copying each block's gout rows into a shared-memory tile
+// first (the mirror of warp_fwd.cu's output tile) was built and measured: it
+// lost on MFE's sparse-motion coordinates (PERF.md §6), so dgrid keeps this
+// design.
+//
 // Summing a block's corners in a shared-memory box first and flushing each
 // box voxel with one atomic was built and measured (PERF.md §6): sm_90a
 // has no native shared-memory fp32 add (it compiles to a compare-and-swap

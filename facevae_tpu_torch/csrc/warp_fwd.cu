@@ -50,10 +50,19 @@
 // (PERF.md §6).
 //
 // K1 = 1 (the Generator and the TPS frame): the output row of a voxel is its
-// C values, so a thread per (n, voxel, channel vector) already stores
-// contiguously; that kernel (the first design) runs there.  Pure gathers: no
-// atomics, so the result is deterministic.
+// C values.  Where C vectorises (the Generator's C = 32: 4 or 8 channels per
+// thread) a thread per (n, voxel, channel vector) already stores
+// contiguously, and that kernel (the first design) runs.  Where it does not
+// (CPT = 1 with 1 < C <= 8, the TPS frame's C = 3), the first design gave
+// each channel a thread, so C threads read the same three coordinates, took
+// the same floors and weights and read one 2-byte channel per corner; the
+// pixel kernel runs one thread per voxel instead, sums all C channels (the
+// same products in the same order: the same bits) and writes the block's
+// outputs through a shared-memory tile as one contiguous run.  Pure
+// gathers: no atomics, so the result is deterministic.
 #include "warp_common.cuh"
+
+#include <cstdint>
 
 namespace {
 
@@ -122,6 +131,38 @@ warp_fwd_kernel(const T* __restrict__ x, const float* __restrict__ gx,
   *reinterpret_cast<Pack<T, CPT>*>(out + ci * C + cv * CPT) = pack<T, CPT>(acc);
 }
 
+// Calls f(voxel index j = (z * H + y) * W + x, weight w) for each of the 8
+// corners of (px, py, pz) inside the volume [D, H, W]: gather's walk, with
+// its weights (keep the two in step: the pixel kernel's bits match the
+// other kernels' through them).  Both were measured as one walk (PERF.md
+// §6): gather written through this one moved the tile kernel by -10% to
+// +3% from set to set, and the pixel kernel written as gather<T, 1> per
+// channel took 0.0162 ms on the TPS frame against 0.0110 with this one.
+template <typename F>
+__device__ __forceinline__ void for_corners(float px, float py, float pz, int D, int H, int W,
+                                            F&& f) {
+  const float fx = floorf(px), fy = floorf(py), fz = floorf(pz);
+  const float tx = px - fx, ty = py - fy, tz = pz - fz;
+#pragma unroll
+  for (int dz = 0; dz < 2; ++dz) {
+    const float zc = fz + dz;
+    if (!(zc >= 0.f && zc <= (float)(D - 1))) continue;
+    const float wz = dz ? tz : 1.f - tz;
+#pragma unroll
+    for (int dy = 0; dy < 2; ++dy) {
+      const float yc = fy + dy;
+      if (!(yc >= 0.f && yc <= (float)(H - 1))) continue;
+      const float wzy = wz * (dy ? ty : 1.f - ty);
+#pragma unroll
+      for (int dx = 0; dx < 2; ++dx) {
+        const float xc = fx + dx;
+        if (!(xc >= 0.f && xc <= (float)(W - 1))) continue;
+        f(((long long)(int)zc * H + (int)yc) * W + (int)xc, wzy * (dx ? tx : 1.f - tx));
+      }
+    }
+  }
+}
+
 template <int U>
 struct Unit;
 template <>
@@ -156,6 +197,68 @@ __device__ __forceinline__ void copy_out(const unsigned char* __restrict__ tile,
   }
 }
 
+// copy_out with the unit chosen at run time
+__device__ __forceinline__ void copy_out(int unit, const unsigned char* tile, int stride,
+                                         unsigned char* dst, int rowbytes, int rows) {
+  switch (unit) {
+    case 16: copy_out<16>(tile, stride, dst, rowbytes, rows); break;
+    case 8: copy_out<8>(tile, stride, dst, rowbytes, rows); break;
+    case 4: copy_out<4>(tile, stride, dst, rowbytes, rows); break;
+    default: copy_out<2>(tile, stride, dst, rowbytes, rows); break;
+  }
+}
+
+// the widest unit (16, 8, 4, 2 bytes) that divides both
+__host__ __device__ inline int copy_unit(long long a, long long b) {
+  for (int u = 16; u > 2; u /= 2)
+    if (a % u == 0 && b % u == 0) return u;
+  return 2;
+}
+
+// the most channels the pixel kernel sums in registers
+constexpr int kPixelChannels = 8;
+
+// K1 = 1 with 1 < C <= kPixelChannels channels that do not vectorise (CPT =
+// 1, e.g. the TPS frame's C = 3): one thread per (n, output voxel) reads its
+// coordinates once, takes each corner's weight once and sums all C channels
+// (each channel's corners in gather's order, with its products: the same
+// bits).  Its C values go to a shared-memory tile of the block's kThreads
+// voxels, which the block writes out as one contiguous run in the widest
+// units its length and address allow.  Grid (ceil(NV / kThreads), N);
+// dynamic shared memory kThreads * C values.
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+warp_fwd_pixel_kernel(const T* __restrict__ x, const float* __restrict__ gx,
+                      const float* __restrict__ gy, const float* __restrict__ gz,
+                      T* __restrict__ out, int D, int H, int W, int C, int NV) {
+  extern __shared__ int4 smem[];
+  T* tile = reinterpret_cast<T*>(smem);
+  const int n = blockIdx.y;
+  const long long v0 = (long long)blockIdx.x * kThreads;
+  const int vt = (int)min((long long)kThreads, NV - v0);
+  if (threadIdx.x < vt) {
+    const long long ci = (long long)n * NV + v0 + threadIdx.x;
+    const T* src = x + (long long)n * D * H * W * C;
+    float acc[kPixelChannels];
+#pragma unroll
+    for (int c = 0; c < kPixelChannels; ++c) acc[c] = 0.f;
+    for_corners(gx[ci], gy[ci], gz[ci], D, H, W, [&](long long j, float w) {
+      const T* p = src + j * C;
+#pragma unroll
+      for (int c = 0; c < kPixelChannels; ++c)
+        if (c < C) acc[c] += w * to_float(p[c]);
+    });
+#pragma unroll
+    for (int c = 0; c < kPixelChannels; ++c)
+      if (c < C) store(&tile[threadIdx.x * C + c], acc[c]);
+  }
+  __syncthreads();
+  unsigned char* dst = reinterpret_cast<unsigned char*>(out + (n * (long long)NV + v0) * C);
+  const int bytes = vt * C * (int)sizeof(T);
+  copy_out(copy_unit(bytes, (long long)reinterpret_cast<uintptr_t>(dst)),
+           reinterpret_cast<const unsigned char*>(tile), bytes, dst, bytes, 1);
+}
+
 // K1 > 1: one block per (n, tile of vt output voxels), all K1 grids; grid
 // (ceil(NV / vt), N).  Dynamic shared memory: the output tile, vt rows of
 // `stride` bytes.
@@ -188,14 +291,9 @@ warp_fwd_tile_kernel(const T* __restrict__ x, const float* __restrict__ gx,
   }
   __syncthreads();
 
-  unsigned char* dst = reinterpret_cast<unsigned char*>(out + (long long)(n * (long long)NV + v0) *
-                                                                   K1 * C);
-  switch (unit) {
-    case 16: copy_out<16>(tile, stride, dst, rowbytes, vt); break;
-    case 8: copy_out<8>(tile, stride, dst, rowbytes, vt); break;
-    case 4: copy_out<4>(tile, stride, dst, rowbytes, vt); break;
-    default: copy_out<2>(tile, stride, dst, rowbytes, vt); break;
-  }
+  copy_out(unit, tile, stride,
+           reinterpret_cast<unsigned char*>(out + (long long)(n * (long long)NV + v0) * K1 * C),
+           rowbytes, vt);
 }
 
 // The tile's row stride in bytes: the row rounded up to whole store vectors,
@@ -215,17 +313,18 @@ int tile_voxels(int rowbytes) {
   return vt;
 }
 
-// the widest copy unit (16, 8, 4, 2 bytes) that divides both
-int copy_unit(int rowbytes, int stride) {
-  for (int u = 16; u > 2; u /= 2)
-    if (rowbytes % u == 0 && stride % u == 0) return u;
-  return 2;
-}
-
 template <typename T, int CPT>
 int launch(const void* x, const float* gx, const float* gy, const float* gz, void* out, int N,
            int D, int H, int W, int C, int K1, int NV, cudaStream_t stream) {
   if (K1 == 1) {
+    if constexpr (CPT == 1) {
+      if (C > 1 && C <= kPixelChannels) {
+        const dim3 grid((unsigned)((NV + kThreads - 1) / kThreads), (unsigned)N);
+        warp_fwd_pixel_kernel<T><<<grid, kThreads, kThreads * C * sizeof(T), stream>>>(
+            static_cast<const T*>(x), gx, gy, gz, static_cast<T*>(out), D, H, W, C, NV);
+        return (int)cudaGetLastError();
+      }
+    }
     const long long threads = (long long)NV * (C / CPT);
     const dim3 grid((unsigned)((threads + kThreads - 1) / kThreads), (unsigned)N);
     warp_fwd_kernel<T, CPT><<<grid, kThreads, 0, stream>>>(

@@ -4,8 +4,9 @@ root serve.py): ``python -m facevae_tpu_torch.serve --device cuda``.
 Same endpoints, flags and batching as the JAX server, around the port's
 InferencePipeline.  The request collector, the HTTP handler and the image
 decoding are the port's own copies of the JAX server's (serve.py), with the
-same behaviour, including its wait of up to 100 ms before a second full
-batch of one drain (ROADMAP Queue 3):
+same behaviour, including how it waits before a second full batch of one
+drain: max(0, min(window, 100 ms) - the first flush's time), nothing at
+the default 10 ms window, which a full-width flush (~170 ms) outlasts:
 
   GET  /healthz                  -> {"ok": true, "batches": N, ...}
   POST /source?session=<id>      -> register/replace the session's source
@@ -131,8 +132,10 @@ class BatchedEngine:
     def _run(self):
         # Per-kind pending lists; a kind flushes when it reaches max_batch or
         # its oldest request has waited window_s; fuller kinds flush first.
-        # Like the JAX collector, after flushing one full batch of a drain it
-        # resets that kind's deadline and waits (up to 100 ms) before the next.
+        # Like the JAX collector, when a drain holds more than one batch of a
+        # kind it resets that kind's deadline to now + window_s before the
+        # flush, so the next full batch waits max(0, min(window_s, 0.1) -
+        # the flush's time) for the queue's timeout.
         pending = {}              # kind -> [requests]
         deadlines = {}            # kind -> monotonic deadline of oldest request
         while not self._stop:

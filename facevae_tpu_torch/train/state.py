@@ -12,8 +12,11 @@ statistics still train) unless LossConfig.train_contrastive_head is set,
 which adds them to the generator optimizer.
 
 A state built here holds seeded random weights, teachers included: enough
-for a benchmark.  A parity run loads the JAX package's whole train state,
-teachers included, with convert.load_jax_train_state.
+for a benchmark.  With LossConfig.pretrained_dir set, the teachers found
+there (vgg19.npz, vggface.npz, hopenet.npz: the JAX package's files) replace
+the seeded ones, as in the JAX package (losses/pretrained.py).  A parity run
+loads the JAX package's whole train state, teachers included, with
+convert.load_jax_train_state.
 """
 from __future__ import annotations
 
@@ -25,6 +28,7 @@ import torch.nn as nn
 
 from facevae_tpu_torch.config import Config
 from facevae_tpu_torch.losses import ContrastiveHead, PerceptualLoss
+from facevae_tpu_torch.losses.pretrained import load_pretrained
 from facevae_tpu_torch.models import D_MODEL_NAMES, G_MODEL_NAMES, Hopenet, build_models
 from facevae_tpu_torch.nn import init_parameters
 
@@ -74,10 +78,13 @@ def make_optimizers(cfg: Config, nets):
 def create_train_state(cfg: Config, device=None,
                        nets: Optional[Dict[str, nn.Module]] = None) -> TrainState:
     """A train state on ``device`` (default: the card), over ``nets`` or
-    freshly seeded ones.  The trainable nets and the head are put in
-    training mode; Hopenet stays in eval form."""
+    freshly seeded ones, with the teachers of ``cfg.loss.pretrained_dir``
+    loaded into them when it is set.  The trainable nets and the head are
+    put in training mode; Hopenet stays in eval form."""
     device = torch.device("cuda" if device is None else device)
     nets = nets if nets is not None else build_all_modules(cfg, device)
+    if cfg.loss.pretrained_dir:
+        load_pretrained(nets, cfg.loss.pretrained_dir)
     for m in nets.values():
         m.train()
     g_opt, d_opt = make_optimizers(cfg, nets)

@@ -32,7 +32,9 @@ def train_step(state: TrainState, batch, transform_params: Optional[TransformPar
     device.  Updates ``state`` in place and returns {"losses_g": {...},
     "losses_d": {...}, "aux": {...}} (tensors on the device, detached).
     After the call every trainable parameter's .grad holds the gradient
-    this step applied."""
+    this step applied.  The step passes ``cfg.train.train_vae`` to generator_forward, as
+    the JAX step does; set, it raises NotImplementedError there (VAE
+    sampling is not ported), before any parameter is updated."""
     numerics.apply()
     s, d, s_a, d_a = batch
 
@@ -40,7 +42,7 @@ def train_step(state: TrainState, batch, transform_params: Optional[TransformPar
     state.g_opt.zero_grad(set_to_none=True)
     losses_g, aux = generator_forward(state.nets, state.cfg, s, d, s_a, d_a,
                                       transform_params=transform_params,
-                                      generator=generator)
+                                      generator=generator, train_vae=state.cfg.train.train_vae)
     sum(losses_g.values()).backward()
     state.g_opt.step()
 

@@ -91,6 +91,71 @@ def test_backward_kernels_match_plain(dtype, shape):
         assert_close(d, r, 1e-5, f"dgrid {'xyz'[a]}")
 
 
+def _with_last_index(coords, spatial):
+    """The first three samples of every (n, k) at 0, the last index and 1
+    on each axis (the upper corner of the last index lies outside)."""
+    for a, size in enumerate((spatial[2], spatial[1], spatial[0])):
+        coords[a][:, :, :3] = torch.tensor([0.0, size - 1.0, 1.0], device="cuda")
+    return coords
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("C", [1, 2, 3, 4, 8])
+@pytest.mark.parametrize("K1", [2, 15, 16])
+def test_dgrid_kernel_matches_plain_at_several_grids(K1, C, dtype):
+    """Kernel 2 at K1 > 1 against its plain version, 1e-5 of max|ref| in
+    both dtypes, on 3 x 11 x 13 = 429 voxels (two blocks of 256 per grid,
+    the last ragged) with exact-integer, last-index, far-out, +-inf and NaN
+    coordinates; and bit for bit against the same kernel at K1 = 1 run on
+    each grid alone (the same products in the same order)."""
+    N, spatial = 2, (3, 11, 13)
+    x, coords, _ = _case(K1 * 10 + C, N, *spatial, C, K1, dtype)
+    coords = _with_last_index(coords, spatial)
+    g = torch.Generator(device="cuda").manual_seed(C)
+    gout = torch.randn(N, *spatial, K1 * C, generator=g, device="cuda").to(dtype)
+    dgrid = fast_warp.warp_multi_pixel_bwd_cuda(x, *coords, gout, spatial, False)[1]
+    ref = fast_warp.warp_multi_pixel_bwd_plain(x, *coords, gout, spatial, False)[1]
+    per_k = [fast_warp.warp_multi_pixel_bwd_cuda(
+        x, *(c[:, k:k + 1].contiguous() for c in coords),
+        gout[..., k * C:(k + 1) * C].contiguous(), spatial, False)[1] for k in range(K1)]
+    torch.cuda.synchronize()
+    for a, (d, r) in enumerate(zip(dgrid, ref)):
+        assert d.dtype == torch.float32 and torch.isfinite(d).all()
+        assert_close(d, r, 1e-5, f"dgrid {'xyz'[a]}")
+        assert torch.equal(d, torch.cat([p[a] for p in per_k], 1)), f"dgrid {'xyz'[a]} bits"
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("C", [1, 3, 5, 6, 32])
+@pytest.mark.parametrize("spatial", [(1, 17, 19), (16, 9, 11)])
+def test_single_grid_forward_kernel_matches_plain(spatial, C, dtype):
+    """Kernel 1 at K1 = 1 (the pixel kernel at C = 3 and 5, the channel-vector
+    kernel otherwise) against its plain version, 1e-5 of max|ref| in fp32,
+    1e-2 in bf16, at D = 1 (z exactly 0, as the TPS frame) and D = 16, N = 3
+    (the samples of n > 0 start off any 16-byte boundary), with the probes
+    of _case and the last index; and bit for bit against kernel 4 on the
+    same samples."""
+    N = 3
+    x, coords, _ = _case(sum(spatial) + C, N, *spatial, C, 1, dtype)
+    coords = _with_last_index(coords, spatial)
+    if spatial[0] == 1:               # a frame: z is 0 but for the far / non-finite probes
+        coords[2] = torch.where(coords[2].abs() < 100, torch.zeros_like(coords[2]), coords[2])
+    out = fast_warp.warp_multi_pixel_cuda(x, *coords, spatial)
+    ref = fast_warp.warp_multi_pixel_plain(x, *coords, spatial)
+    grid = torch.stack([c * (2.0 / (s - 1)) - 1.0 if s > 1 else c
+                        for c, s in zip(coords, spatial[::-1])], -1)
+    grid = grid.reshape(N, *spatial, 3).contiguous()
+    single = fast_warp.grid_sample_3d_cuda(x, grid, 1)
+    pix = [((grid[..., a] + 1.0) * 0.5 * (s - 1)).reshape(N, 1, -1).contiguous()
+           for a, s in enumerate(spatial[::-1])]
+    multi = fast_warp.warp_multi_pixel_cuda(x, *pix, spatial)
+    torch.cuda.synchronize()
+    assert out.dtype == dtype and out.shape == ref.shape and torch.isfinite(out).all()
+    assert_close(out.float(), ref.float(), 1e-5 if dtype == torch.float32 else 1e-2,
+                 f"{spatial} C={C} {dtype}")
+    assert torch.equal(multi.reshape(single.shape), single)
+
+
 def test_backward_skips_what_autograd_does_not_need():
     x, coords, spatial = _case(3, 2, 4, 8, 8, 4, 3, torch.float32)
     x.requires_grad_()
