@@ -29,9 +29,14 @@ Phases, each fatal on failure (exit code 1, no result line):
               and its plain version's median CUDA-event time over 20 calls;
               each kernel's bound from its bytes, and the dx kernels'
               run-to-run max difference (their atomics add in varying
-              order).  Per multi-grid site and dtype the bytes of kernel
-              1's stores (through a shared-memory tile at K1 > 1) and of
-              the cotangent kernel 2 reads.  Then the single-grid forward
+              order).  The dx kernels' deterministic variants (fixed-point
+              int64 sums) at every site and dtype where dx runs: within
+              the dx tolerance of the plain version, the same bits on a
+              second run and, at MFE, with the K1 grids permuted; their
+              device time beside the default kernel's.  Per multi-grid site
+              and dtype the bytes of kernel 1's stores (through a
+              shared-memory tile at K1 > 1) and of the cotangent kernel 2
+              reads.  Then the single-grid forward
               against the multi-grid forward on the same samples at both
               single-grid shapes (fp32) and at the TPS frame (bf16, where
               kernel 1 runs its pixel kernel): within 1e-5 of max|ref|, and
@@ -54,7 +59,11 @@ Phases, each fatal on failure (exit code 1, no result line):
               tools/make_torch_step_golden.py): every loss and the gradient
               of every G and D parameter, held to the CPU step as
               tests/test_torch_train.py (fp32) and tests/test_torch_bf16.py
-              (bf16) hold the port to JAX.
+              (bf16) hold the port to JAX.  Each step again under
+              torch.use_deterministic_algorithms(True) (strict: an op
+              without a deterministic implementation raises, and the phase
+              fails): held the same way, the dx kernels' deterministic
+              variants launched in place of the default ones.
   7. train    the full-width ModelConfig() training step, fp32, batch 8,
               seeded weights and teachers, through facevae_tpu_torch.bench:
               2 warm-up and 5 timed steps; every loss finite; per step each
@@ -113,6 +122,11 @@ KERNELS = {   # name -> (source, the TPU kernel it replaces)
                        "facevae_tpu/ops/pallas/warp_mm.py:415"),  # _dgrid_kernel
     "grid_bwd_dx": ("facevae_tpu_torch/csrc/warp_grid.cu",
                     "facevae_tpu/ops/pallas/warp_mm.py:435"),     # _drows_kernel
+    # the dx kernels' deterministic variants (torch.use_deterministic_algorithms)
+    "warp_bwd_dx_det": ("facevae_tpu_torch/csrc/warp_bwd.cu",
+                        "facevae_tpu/ops/pallas/warp_mm.py:247"),
+    "grid_bwd_dx_det": ("facevae_tpu_torch/csrc/warp_grid.cu",
+                        "facevae_tpu/ops/pallas/warp_mm.py:435"),
 }
 # the probe path's kernels (phase 9): name -> (source, the TPU kernel it replaces)
 PROBE_KERNELS = {
@@ -135,7 +149,7 @@ ALL, BOTH = ("fwd", "bwd_dgrid", "bwd_dx"), ("float32", "bfloat16")
 # Generator's runs at bf16), the Generator for the single-grid ones.
 SITES = (("MFE", "warp", 4, 15, VOLUME, BOTH, ALL, True),
          ("MFE sparse motion", "warp", 4, 15, VOLUME, BOTH, ALL, False),
-         ("MFE sparse motion + probes", "warp", 4, 15, VOLUME, ("float32",), ALL, False),
+         ("MFE sparse motion + probes", "warp", 4, 15, VOLUME, BOTH, ALL, False),
          ("Generator", "warp", 32, 1, VOLUME, BOTH, ALL, True),
          ("TPS", "warp", 3, 1, (1, 256, 256), ("bfloat16",), ("fwd",), False),
          ("Generator", "grid", 32, 1, VOLUME, BOTH, ALL, True),
@@ -264,6 +278,18 @@ def _library_calls(x, grid, gout):
             "bwd_dgrid": bwd([False, True]), "bwd_dx": bwd([True, False])}
 
 
+def _deterministic(fn):
+    """fn() under torch.use_deterministic_algorithms(True), where the
+    wrappers launch the dx kernels' deterministic variants; the mode off
+    after."""
+    import torch
+    torch.use_deterministic_algorithms(True)
+    try:
+        return fn()
+    finally:
+        torch.use_deterministic_algorithms(False)
+
+
 def _site_calls(family, x, coords, grid, gout, gps, spatial):
     """name -> (kernel call, plain call) of one site's kernels."""
     from facevae_tpu_torch.ops import fast_warp as fw
@@ -278,6 +304,11 @@ def _site_calls(family, x, coords, grid, gout, gps, spatial):
                 lambda: fw.warp_multi_pixel_bwd_cuda(x, *coords, gout, spatial,
                                                      need_dgrid=False)[0],
                 lambda: fw.warp_multi_pixel_bwd_plain(x, *coords, gout, spatial,
+                                                      need_dgrid=False)[0]),
+            "warp_bwd_dx_det": (
+                lambda: _deterministic(lambda: fw.warp_multi_pixel_bwd_cuda(
+                    x, *coords, gout, spatial, need_dgrid=False)[0]),
+                lambda: fw.warp_multi_pixel_bwd_plain(x, *coords, gout, spatial,
                                                       need_dgrid=False)[0])}
     return {
         "grid_fwd": (lambda: fw.grid_sample_3d_cuda(x, grid, gps),
@@ -287,7 +318,24 @@ def _site_calls(family, x, coords, grid, gout, gps, spatial):
         "grid_bwd_dx": (lambda: fw.grid_sample_3d_bwd_cuda(x, grid, gout, gps,
                                                            need_dgrid=False)[0],
                         lambda: fw.grid_sample_3d_bwd_plain(x, grid, gout, gps,
-                                                            need_dgrid=False)[0])}
+                                                            need_dgrid=False)[0]),
+        "grid_bwd_dx_det": (lambda: _deterministic(lambda: fw.grid_sample_3d_bwd_cuda(
+                                x, grid, gout, gps, need_dgrid=False)[0]),
+                            lambda: fw.grid_sample_3d_bwd_plain(x, grid, gout, gps,
+                                                                need_dgrid=False)[0])}
+
+
+def _permuted_dx(x, coords, gout, spatial):
+    """The deterministic multi-grid dx with the K1 grids and their gout
+    columns permuted (a seeded permutation from a generator of its own, so
+    phase 3's draws stay as they were)."""
+    import torch
+    from facevae_tpu_torch.ops import fast_warp as fw
+    N, C, K1 = x.shape[0], x.shape[-1], coords[0].shape[1]
+    perm = torch.randperm(K1, generator=torch.Generator().manual_seed(K1)).to(x.device)
+    pgout = gout.reshape(N, -1, K1, C)[:, :, perm].reshape(gout.shape).contiguous()
+    return _deterministic(lambda: fw.warp_multi_pixel_bwd_cuda(
+        x, *(c[:, perm].contiguous() for c in coords), pgout, spatial, need_dgrid=False)[0])
 
 
 def _cross_check(x, grid, gps):
@@ -336,7 +384,7 @@ def phase_kernels():
             calls = _site_calls(family, x, coords, grid, gout, K1, spatial)
             library = _library_calls(x, grid, gout_gm)
             for name, (kernel, plain) in calls.items():
-                half = name.split("_", 1)[1]
+                half = name.split("_", 1)[1].removesuffix("_det")
                 if half not in halves:
                     continue
                 out, ref = kernel(), plain()
@@ -357,10 +405,17 @@ def phase_kernels():
                 row["bound_ms"], row["bound_by"] = _bound_ms(half, N, D, H, W, C, K1,
                                                              x.element_size())
                 if half == "bwd_dx":
-                    row["rerun_diff"] = (kernel().float() - out[0].float()).abs().max().item()
+                    again = kernel()
+                    row["rerun_diff"] = (again.float() - out[0].float()).abs().max().item()
+                    row["rerun_equal"] = bool(torch.equal(again, out[0]))
+                if name == "warp_bwd_dx_det" and K1 > 1:
+                    row["permuted_equal"] = bool(torch.equal(
+                        _permuted_dx(x, coords, gout, spatial), out[0]))
                 rows.append(row)
                 rerun = (f"; run-to-run max|diff| {row['rerun_diff']:.3e}"
                          if "rerun_diff" in row else "")
+                if "permuted_equal" in row:
+                    rerun += f"; K1 grids permuted: bit for bit {row['permuted_equal']}"
                 k = "gps" if family == "grid" else "K1"
                 print(f"[kernels] {name} {site} x[{N},{D},{H},{W},{C}] {k}={K1} {dname}: "
                       f"max|err| {err:.3e} (limit {row['tol']:.3e}, max|ref| {scale:.3f}); "
@@ -382,6 +437,16 @@ def phase_kernels():
     for r in rows:
         check(r["err"] <= r["tol"], f"{r['name']} {r['site']} {r['dtype']}: "
                                     f"{r['err']:.3e} > {r['tol']:.3e}")
+        if r["name"].endswith("_det"):
+            check(r["rerun_equal"] and r.get("permuted_equal", True),
+                  f"{r['name']} {r['site']} {r['dtype']}: not deterministic (run-to-run "
+                  f"{r['rerun_diff']:.3e}, K1 permuted equal {r.get('permuted_equal')})")
+    for r in rows:
+        if r["name"].endswith("_det"):
+            base = next(b for b in rows if b["name"] == r["name"][:-4]
+                        and (b["site"], b["dtype"]) == (r["site"], r["dtype"]))
+            print(f"[kernels] {r['name']} {r['site']} {r['dtype']}: {r['ms']:.4f} ms, "
+                  f"{r['ms'] / base['ms']:.2f}x the default dx kernel's {base['ms']:.4f} ms")
     for site, err, scale, _ in cross:
         check(err <= CROSS_TOL * scale, f"single-grid vs multi-grid forward at {site}: "
                                         f"{err:.3e} > {CROSS_TOL * scale:.3e}")
@@ -543,9 +608,13 @@ STEP_LAUNCHES = {"float32": {"warp_fwd": 1, "warp_bwd_dgrid": 1, "warp_bwd_dx": 
                  "bfloat16": {"warp_fwd": 3, "warp_bwd_dgrid": 2, "warp_bwd_dx": 2}}
 
 
-def _want(counts, dtype, steps):
-    return {**dict.fromkeys(counts, 0),
-            **{k: steps * v for k, v in STEP_LAUNCHES[dtype].items()}}
+def _want(counts, dtype, steps, deterministic=False):
+    """The launch counts of ``steps`` steps: STEP_LAUNCHES, the dx kernels'
+    deterministic variants in their place under deterministic algorithms,
+    every other count (the plain versions) 0."""
+    per_step = {(k + "_det" if deterministic and k.endswith("_dx") else k): v
+                for k, v in STEP_LAUNCHES[dtype].items()}
+    return {**dict.fromkeys(counts, 0), **{k: steps * v for k, v in per_step.items()}}
 
 
 def numpy_weights(nets, seed):
@@ -688,19 +757,32 @@ def phase_train_tiny():
         "bfloat16": (gold, lambda kind, n, k: float(z[f"noise/loss/{n}" if kind == "loss"
                                                        else f"noise/grad/{n}/{k}"]),
                      BF16_SPREAD, BF16_TRAIN_TOL)}
+    det_paths = {}
     for dtype, ((ref_losses, ref_grads), noise, factor, tol) in refs.items():
-        fast_warp.reset_launch_counts()
-        losses, grads = tiny_step("cuda", batch, dtype, tp)
-        torch.cuda.synchronize()
-        launches = dict(fast_warp.launches)
-        bad, worst = held_step(losses, grads, ref_losses, ref_grads, noise, factor, tol)
-        print(f"[train_tiny] {dtype}: card vs CPU step, tiny_config batch 2: losses "
-              + ", ".join(f"{k} {v:.5f}/{ref_losses[k]:.5f}" for k, v in losses.items()))
-        print(f"[train_tiny] {dtype}: {sum(len(g) for g in grads.values())} gradient leaves "
-              f"and {len(losses)} losses held; worst err/limit {worst:.3f}; "
-              f"card launches {launches}")
-        check(not bad, f"{dtype} card step differs from the CPU step: {bad[:8]}")
-        check(launches == _want(launches, dtype, 1), f"tiny {dtype} step launches {launches}")
+        for det in (False, True):
+            tag = f"{dtype}{' deterministic' if det else ''}"
+            fast_warp.reset_launch_counts()
+            # strict: an op of the step without a deterministic implementation raises
+            torch.use_deterministic_algorithms(det)
+            try:
+                losses, grads = tiny_step("cuda", batch, dtype, tp)
+                torch.cuda.synchronize()
+            except RuntimeError as e:
+                raise PhaseError(f"tiny {tag} step raised: {e}") from e
+            finally:
+                torch.use_deterministic_algorithms(False)
+            launches = dict(fast_warp.launches)
+            bad, worst = held_step(losses, grads, ref_losses, ref_grads, noise, factor, tol)
+            print(f"[train_tiny] {tag}: card vs CPU step, tiny_config batch 2: losses "
+                  + ", ".join(f"{k} {v:.5f}/{ref_losses[k]:.5f}" for k, v in losses.items()))
+            print(f"[train_tiny] {tag}: {sum(len(g) for g in grads.values())} gradient leaves "
+                  f"and {len(losses)} losses held; worst err/limit {worst:.3f}; "
+                  f"card launches {launches}")
+            if det:
+                det_paths[f"train_tiny_det_{dtype}"] = launches
+            check(not bad, f"{tag} card step differs from the CPU step: {bad[:8]}")
+            check(launches == _want(launches, dtype, 1, det), f"tiny {tag} step launches {launches}")
+    return det_paths
 
 
 def _train(card, dtype):
@@ -865,6 +947,8 @@ def main() -> int:
                 rows = out
             elif name in ("serve", "train", "train_bf16"):
                 paths[name] = out                  # each main path's launch counts
+            elif name == "train_tiny":
+                det_paths = out                    # the deterministic mode's steps
             elif name == "probes":
                 probe_rows, probe_counts = out
     except PhaseError as e:
@@ -872,12 +956,14 @@ def main() -> int:
         return 1
     kernels = []
     for name, (source, replaces) in KERNELS.items():
-        # the kernel's fp32 calls at the main paths' sites (SITES)
+        # the kernel's fp32 calls at the main paths' sites (SITES); the
+        # deterministic variants launch on the deterministic steps of phase 6
         fp32 = [r for r in rows if r["name"] == name and r["dtype"] == "float32" and r["in_json"]]
+        counted = det_paths if name.endswith("_det") else paths
         kernels.append({
             "name": name, "route": "cuda", "source": source, "replaces": replaces,
-            "launches": sum(p[name] for p in paths.values()),
-            "launches_by_path": {k: p[name] for k, p in paths.items()},
+            "launches": sum(p[name] for p in counted.values()),
+            "launches_by_path": {k: p[name] for k, p in counted.items()},
             "max_abs_err": max(r["err"] for r in fp32),
             "ms": sum(r["ms"] for r in fp32), "event_ms": sum(r["event_ms"] for r in fp32),
             "plain_ms": sum(r["plain_ms"] for r in fp32),

@@ -24,10 +24,11 @@ noisy set normalized) and the reference-form MFE call (x [8,16,64,64,4],
 gps=16, warp_inputs.reference_form_grid), fp32 and bf16.  The inputs come
 from this checkout's warp_inputs.py, so both checkouts get the same ones.
 Per case one JSON line: the device time per call of the forward, dgrid and
-dx kernels (probes/common.py:graph_ms: 10 calls in one CUDA graph, median
-of 20 replays), a digest of the inputs and of the forward's and dgrid's
-outputs (equal digests on equal inputs: equal bits), under the card's name
-and power limit.  Needs a CUDA card.
+dx kernels and, where the checkout has it, the dx kernels' deterministic
+variant (``dx_det``; probes/common.py:graph_ms: 10 calls in one CUDA graph,
+median of 20 replays), a digest of the inputs and of the forward's,
+dgrid's and dx_det's outputs (equal digests on equal inputs: equal bits),
+under the card's name and power limit.  Needs a CUDA card.
 """
 from __future__ import annotations
 
@@ -126,16 +127,37 @@ def digest(*tensors):
     return h.hexdigest()[:16]
 
 
+def _deterministic(fn):
+    """fn() under torch.use_deterministic_algorithms(True) (the dx kernels'
+    deterministic variants), the mode off after."""
+    import torch
+    torch.use_deterministic_algorithms(True)
+    try:
+        return fn()
+    finally:
+        torch.use_deterministic_algorithms(False)
+
+
 def _calls(fw, family, x, inp, gout, K1, volume):
-    """half -> the kernel call of one case"""
+    """half -> the kernel call of one case; "dx_det" (the dx kernels'
+    deterministic variants) only where the checkout has them."""
     if family == "warp":
-        return {"fwd": lambda: fw.warp_multi_pixel_cuda(x, *inp, volume),
-                "dgrid": lambda: fw.warp_multi_pixel_bwd_cuda(x, *inp, gout, volume, False)[1],
-                "dx": lambda: fw.warp_multi_pixel_bwd_cuda(x, *inp, gout, volume,
-                                                           need_dgrid=False)[0]}
-    return {"fwd": lambda: fw.grid_sample_3d_cuda(x, inp, K1),
-            "dgrid": lambda: fw.grid_sample_3d_bwd_cuda(x, inp, gout, K1, False)[1],
-            "dx": lambda: fw.grid_sample_3d_bwd_cuda(x, inp, gout, K1, need_dgrid=False)[0]}
+        calls = {"fwd": lambda: fw.warp_multi_pixel_cuda(x, *inp, volume),
+                 "dgrid": lambda: fw.warp_multi_pixel_bwd_cuda(x, *inp, gout, volume, False)[1],
+                 "dx": lambda: fw.warp_multi_pixel_bwd_cuda(x, *inp, gout, volume,
+                                                            need_dgrid=False)[0],
+                 "dx_det": lambda: _deterministic(lambda: fw.warp_multi_pixel_bwd_cuda(
+                     x, *inp, gout, volume, need_dgrid=False)[0])}
+    else:
+        calls = {"fwd": lambda: fw.grid_sample_3d_cuda(x, inp, K1),
+                 "dgrid": lambda: fw.grid_sample_3d_bwd_cuda(x, inp, gout, K1, False)[1],
+                 "dx": lambda: fw.grid_sample_3d_bwd_cuda(x, inp, gout, K1,
+                                                          need_dgrid=False)[0],
+                 "dx_det": lambda: _deterministic(lambda: fw.grid_sample_3d_bwd_cuda(
+                     x, inp, gout, K1, need_dgrid=False)[0])}
+    if "warp_bwd_dx_det" not in fw.launches:
+        del calls["dx_det"]
+    return calls
 
 
 def smi():
@@ -165,10 +187,11 @@ def run():
                     if family == "warp" else
                     torch.randn(N_BATCH * K1, *volume, C, generator=g, device="cuda")).to(dtype)
             calls = _calls(fw, family, x, inp, gout, K1, volume)
+            halves_here = [*halves, *(["dx_det"] if "dx" in halves and "dx_det" in calls else [])]
             row = dict(site=site, family=family, set=cset, dtype=dname, C=C, K1=K1)
-            row.update({f"{h}_ms": graph_ms(calls[h]) for h in halves})
+            row.update({f"{h}_ms": graph_ms(calls[h]) for h in halves_here})
             row["in_digest"] = digest(x, *(inp if family == "warp" else (inp,)), gout)
-            for h in halves:
+            for h in halves_here:
                 if h != "dx":                      # dx adds with atomics: its bits vary
                     out = calls[h]()
                     row[f"{h}_digest"] = digest(*(out if isinstance(out, tuple) else (out,)))

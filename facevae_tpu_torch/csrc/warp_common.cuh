@@ -44,6 +44,81 @@ __device__ __forceinline__ void atomic_add_vec(float* dst, const float* v) {
   for (int i = 0; i < CPT; ++i) atomicAdd(dst + i, v[i]);
 }
 
+// Where the dx kernels (warp_bwd.cu, warp_grid.cu) send their scatter-add,
+// chosen by fast_warp.py: FloatSink by default, FixedSink when PyTorch's
+// deterministic algorithms are on.  A kernel turns each contribution c (one
+// channel of w * gout) into a summand with make(c, e), e its element of dx,
+// may add summands bound for the same element together, and adds them with
+// add<CPT>(e, v) for CPT channels from e.  prepare() runs once per thread.
+//
+// FloatSink: fp32 atomics (float4 / float2 where the vector allows), so the
+// order of the adds, and the last bits of dx, vary from run to run.
+struct FloatSink {
+  using V = float;
+  float* acc;
+  __device__ __forceinline__ void prepare() {}
+  __device__ __forceinline__ V make(float c, long long) const { return c; }
+  template <int CPT>
+  __device__ __forceinline__ void add(long long e, const V* v) const {
+    atomic_add_vec<CPT>(acc + e, v);
+  }
+};
+
+// FixedSink: a fixed-point sum in int64.  Each finite contribution is
+// rounded once to round(c * 2^s) and added with a 64-bit integer atomic;
+// integer addition is associative, so any order of the adds gives the same
+// bits.  s (on the device, fast_warp.dx_scale_exponent) keeps count * M * 2^s
+// <= 2^62 for M = max |finite gout| and count the samples that can reach one
+// element (a sample's corner weights are at most 1), so no sum overflows.  A
+// non-finite contribution sets a flag of its element instead (atomicOr, 4
+// bits per element, 8 elements per word: 1 NaN, 2 +inf, 4 -inf), which
+// fixed_to_float_kernel turns into IEEE's sum of them.
+struct FixedSink {
+  using V = long long;
+  unsigned long long* acc;
+  unsigned int* flags;
+  const int* scale_exp;
+  int s;
+  __device__ __forceinline__ void prepare() { s = *scale_exp; }
+  __device__ __forceinline__ V make(float c, long long e) const {
+    const unsigned b = __float_as_uint(c);
+    if ((b & 0x7f800000u) != 0x7f800000u) return __float2ll_rn(ldexpf(c, s));
+    const unsigned bit = (b & 0x007fffffu) ? 1u : (b >> 31 ? 4u : 2u);
+    atomicOr(flags + (e >> 3), bit << ((e & 7) * 4));
+    return 0;
+  }
+  template <int CPT>
+  __device__ __forceinline__ void add(long long e, const V* v) const {
+#pragma unroll
+    for (int i = 0; i < CPT; ++i)
+      if (v[i] != 0) atomicAdd(acc + e + i, (unsigned long long)v[i]);
+  }
+};
+
+// FixedSink's sums -> fp32, once per element: acc * 2^-s, or NaN / +-inf by
+// IEEE's rules from the flags (NaN, or +inf with -inf, gives NaN).
+__global__ void __launch_bounds__(kThreads)
+fixed_to_float_kernel(const long long* __restrict__ acc, const unsigned int* __restrict__ flags,
+                      const int* __restrict__ scale_exp, float* __restrict__ out, long long n) {
+  const long long i = (long long)blockIdx.x * kThreads + threadIdx.x;
+  if (i >= n) return;
+  const unsigned f = (flags[i >> 3] >> ((i & 7) * 4)) & 7u;
+  float r;
+  if ((f & 1u) || f == 6u) r = __int_as_float(0x7fc00000);
+  else if (f & 2u) r = __int_as_float(0x7f800000);
+  else if (f & 4u) r = __int_as_float(0xff800000);
+  else r = ldexpf(__ll2float_rn(acc[i]), -*scale_exp);
+  out[i] = r;
+}
+
+inline int launch_fixed_to_float(const void* acc, const void* flags, const int* scale_exp,
+                                 float* out, long long n, cudaStream_t s) {
+  fixed_to_float_kernel<<<(unsigned)((n + kThreads - 1) / kThreads), kThreads, 0, s>>>(
+      static_cast<const long long*>(acc), static_cast<const unsigned int*>(flags), scale_exp,
+      out, n);
+  return (int)cudaGetLastError();
+}
+
 struct Axis {
   float f, t;  // floor(g), g - floor(g)
 };

@@ -43,14 +43,24 @@
 // call (C=4, gps=16) the grid is 101 MB and the samples 134 MB.  PERF.md holds
 // the measured times.
 //
-// Design: the forward and dx kernels run one thread per (g, v, vector of CPT
-// channels) (16 bytes where C allows it), so the grid-major output and gout
-// are read and written contiguously across a warp (unlike warp_fwd.cu's
-// k-major stores); the dgrid kernel runs one thread per (g, v), since it sums
-// a dot product over all C channels, and owns its three outputs.  blockIdx.y
-// is g.  The dx kernel adds with float4 / float2 atomics where the vector
-// allows it, so the order of its sums, and the last bits of dx, vary from run
-// to run.
+// Design: all three kernels run threads per (g, v, vector of CPT channels)
+// (16 bytes where C allows it), so the grid-major output and gout are read
+// and written contiguously across a warp (unlike warp_fwd.cu's k-major
+// stores); blockIdx.y is g.  The forward and dx kernels run one thread per
+// channel vector.  The dgrid kernel sums a dot product over all C channels
+// per corner: it runs LANES threads per (g, v) (the power of two >= C / CPT,
+// at most 32), each loading its cotangent vector once and reading one
+// coalesced vector of each corner, and reduces the three partial sums over
+// the voxel's lanes with __shfl_xor_sync; lanes 0-2 store them.  Its first
+// design, a thread per (g, v) reading every vector of gout again at each of
+// the 8 corners (64 loads where 8 do at the fp32 Generator, none coalesced
+// across the warp), was slower than F.grid_sample's backward (PERF.md §6).
+// The dx kernel adds through a sink (warp_common.cuh): by default float4 /
+// float2 atomics where the vector allows it, so the order of its sums, and
+// the last bits of dx, vary from run to run; in deterministic mode
+// (fast_warp.py, when torch.are_deterministic_algorithms_enabled()) a
+// fixed-point int64 sum whose bits do not depend on the order, at the cost of
+// scalar 64-bit atomics, the int64 buffer and a conversion pass.
 #include "warp_common.cuh"
 
 namespace {
@@ -109,61 +119,83 @@ grid_fwd_kernel(const T* __restrict__ x, const float* __restrict__ grid,
   *reinterpret_cast<Pack<T, CPT>*>(out + gv * C + cv * CPT) = o;
 }
 
-template <typename T, int CPT>
+constexpr unsigned kFull = 0xffffffffu;
+
+// LANES threads per (g, v) (a power of two >= C / CPT, at most 32), each
+// summing the dot products of its channel vectors: cv = lane, lane + LANES...
+template <typename T, int CPT, int LANES>
 __global__ void __launch_bounds__(kThreads)
 grid_dgrid_kernel(const T* __restrict__ x, const float* __restrict__ grid,
                   const T* __restrict__ gout, float* __restrict__ dgrid, int D, int H,
                   int W, int C, int gps, int NV) {
-  const int v = blockIdx.x * kThreads + threadIdx.x;
-  if (v >= NV) return;
+  const long long t = (long long)blockIdx.x * kThreads + threadIdx.x;
+  const int v = (int)(t / LANES);
+  const int lane = threadIdx.x & (LANES - 1);
+  // no early return: the LANES lanes of a voxel reduce with shuffles below
+  const bool live = v < NV;
   const int g = blockIdx.y;
   const long long gv = (long long)g * NV + v;
-  const float* p = grid + gv * 3;
-  const Axis ax = axis(unnormalize(p[0], W)), ay = axis(unnormalize(p[1], H)),
-             az = axis(unnormalize(p[2], D));
   const T* xn = x + (long long)(g / gps) * D * H * W * C;
   const T* go = gout + gv * C;
 
   float ddx = 0.f, ddy = 0.f, ddz = 0.f;
+  if (live) {
+    const float* p = grid + gv * 3;
+    const Axis ax = axis(unnormalize(p[0], W)), ay = axis(unnormalize(p[1], H)),
+               az = axis(unnormalize(p[2], D));
+    for (int c = lane * CPT; c < C; c += LANES * CPT) {
+      // this lane's cotangent vector, loaded once for the 8 corners
+      const Pack<T, CPT> o = *reinterpret_cast<const Pack<T, CPT>*>(go + c);
 #pragma unroll
-  for (int dz = 0; dz < 2; ++dz) {
-    const float zc = az.f + dz;
-    if (!inside(zc, D)) continue;
-    const float wz = dz ? az.t : 1.f - az.t, sz = dz ? 1.f : -1.f;
+      for (int dz = 0; dz < 2; ++dz) {
+        const float zc = az.f + dz;
+        if (!inside(zc, D)) continue;
+        const float wz = dz ? az.t : 1.f - az.t, sz = dz ? 1.f : -1.f;
 #pragma unroll
-    for (int dy = 0; dy < 2; ++dy) {
-      const float yc = ay.f + dy;
-      if (!inside(yc, H)) continue;
-      const float wy = dy ? ay.t : 1.f - ay.t, sy = dy ? 1.f : -1.f;
+        for (int dy = 0; dy < 2; ++dy) {
+          const float yc = ay.f + dy;
+          if (!inside(yc, H)) continue;
+          const float wy = dy ? ay.t : 1.f - ay.t, sy = dy ? 1.f : -1.f;
 #pragma unroll
-      for (int dx = 0; dx < 2; ++dx) {
-        const float xc = ax.f + dx;
-        if (!inside(xc, W)) continue;
-        const float wx = dx ? ax.t : 1.f - ax.t, sx = dx ? 1.f : -1.f;
-        const T* xj = xn + (((long long)(int)zc * H + (int)yc) * W + (int)xc) * C;
-        float dot = 0.f;
-        for (int c = 0; c < C; c += CPT) {
-          const Pack<T, CPT> s = *reinterpret_cast<const Pack<T, CPT>*>(xj + c);
-          const Pack<T, CPT> o = *reinterpret_cast<const Pack<T, CPT>*>(go + c);
+          for (int dx = 0; dx < 2; ++dx) {
+            const float xc = ax.f + dx;
+            if (!inside(xc, W)) continue;
+            const float wx = dx ? ax.t : 1.f - ax.t, sx = dx ? 1.f : -1.f;
+            const Pack<T, CPT> s = *reinterpret_cast<const Pack<T, CPT>*>(
+                xn + (((long long)(int)zc * H + (int)yc) * W + (int)xc) * C + c);
+            float dot = 0.f;
 #pragma unroll
-          for (int i = 0; i < CPT; ++i) dot += to_float(o.v[i]) * to_float(s.v[i]);
+            for (int i = 0; i < CPT; ++i) dot += to_float(o.v[i]) * to_float(s.v[i]);
+            ddx += sx * wy * wz * dot;
+            ddy += wx * sy * wz * dot;
+            ddz += wx * wy * sz * dot;
+          }
         }
-        ddx += sx * wy * wz * dot;
-        ddy += wx * sy * wz * dot;
-        ddz += wx * wy * sz * dot;
       }
     }
   }
-  float* d = dgrid + gv * 3;
-  d[0] = ddx * ((float)(W - 1) * 0.5f);
-  d[1] = ddy * ((float)(H - 1) * 0.5f);
-  d[2] = ddz * ((float)(D - 1) * 0.5f);
+#pragma unroll
+  for (int o = LANES / 2; o > 0; o /= 2) {
+    ddx += __shfl_xor_sync(kFull, ddx, o);
+    ddy += __shfl_xor_sync(kFull, ddy, o);
+    ddz += __shfl_xor_sync(kFull, ddz, o);
+  }
+  // lanes 0, 1, 2 of the voxel store its x, y, z: three neighbouring floats
+  if (live && lane < 3)
+    dgrid[gv * 3 + lane] = lane == 0 ? ddx * ((float)(W - 1) * 0.5f)
+                         : lane == 1 ? ddy * ((float)(H - 1) * 0.5f)
+                                     : ddz * ((float)(D - 1) * 0.5f);
+  if (LANES < 3 && live && lane == 0) {  // fewer lanes than outputs
+    if (LANES == 1) dgrid[gv * 3 + 1] = ddy * ((float)(H - 1) * 0.5f);
+    dgrid[gv * 3 + 2] = ddz * ((float)(D - 1) * 0.5f);
+  }
 }
 
-template <typename T, int CPT>
+template <typename T, int CPT, class Sink>
 __global__ void __launch_bounds__(kThreads)
-grid_dx_kernel(const float* __restrict__ grid, const T* __restrict__ gout,
-               float* __restrict__ dx_acc, int D, int H, int W, int C, int gps, int NV) {
+grid_dx_kernel(const float* __restrict__ grid, const T* __restrict__ gout, Sink sink, int D,
+               int H, int W, int C, int gps, int NV) {
+  sink.prepare();
   const int cvs = C / CPT;
   const long long t = (long long)blockIdx.x * kThreads + threadIdx.x;
   if (t >= (long long)NV * cvs) return;
@@ -174,7 +206,7 @@ grid_dx_kernel(const float* __restrict__ grid, const T* __restrict__ gout,
   const float* p = grid + gv * 3;
   const Axis ax = axis(unnormalize(p[0], W)), ay = axis(unnormalize(p[1], H)),
              az = axis(unnormalize(p[2], D));
-  float* dn = dx_acc + (long long)(g / gps) * D * H * W * C + cv * CPT;
+  const long long dn = (long long)(g / gps) * D * H * W * C + cv * CPT;
   const Pack<T, CPT> o = *reinterpret_cast<const Pack<T, CPT>*>(gout + gv * C + cv * CPT);
   float go[CPT];
 #pragma unroll
@@ -195,10 +227,11 @@ grid_dx_kernel(const float* __restrict__ grid, const T* __restrict__ gout,
         const float xc = ax.f + dx;
         if (!inside(xc, W)) continue;
         const float w = wzy * (dx ? ax.t : 1.f - ax.t);
-        float upd[CPT];
+        const long long e = dn + (((long long)(int)zc * H + (int)yc) * W + (int)xc) * C;
+        typename Sink::V upd[CPT];
 #pragma unroll
-        for (int i = 0; i < CPT; ++i) upd[i] = w * go[i];
-        atomic_add_vec<CPT>(dn + (((long long)(int)zc * H + (int)yc) * W + (int)xc) * C, upd);
+        for (int i = 0; i < CPT; ++i) upd[i] = sink.make(w * go[i], e + i);
+        sink.template add<CPT>(e, upd);
       }
     }
   }
@@ -229,22 +262,57 @@ extern "C" int facevae_grid_fwd(const void* x, const float* grid, void* out, int
 extern "C" int facevae_grid_bwd_dgrid(const void* x, const float* grid, const void* gout,
                                       float* dgrid, int D, int H, int W, int C, int gps,
                                       int G, int NV, int dtype, int cpt, void* stream) {
+  const int cvs = C / cpt;
+  const int lanes = cvs <= 1 ? 1 : cvs <= 2 ? 2 : cvs <= 4 ? 4 : cvs <= 8 ? 8
+                  : cvs <= 16 ? 16 : 32;
   return dispatch(dtype, cpt, [&](auto t, auto c) {
     using T = std::remove_pointer_t<decltype(t)>;
     constexpr int CPT = decltype(c)::value;
-    grid_dgrid_kernel<T, CPT><<<blocks(NV, G), kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-        static_cast<const T*>(x), grid, static_cast<const T*>(gout), dgrid, D, H, W, C, gps, NV);
+    const dim3 b = blocks((long long)NV * lanes, G);
+    const cudaStream_t s = static_cast<cudaStream_t>(stream);
+    const T* xs = static_cast<const T*>(x);
+    const T* go = static_cast<const T*>(gout);
+    switch (lanes) {
+      case 1: grid_dgrid_kernel<T, CPT, 1><<<b, kThreads, 0, s>>>(xs, grid, go, dgrid, D, H, W, C, gps, NV); break;
+      case 2: grid_dgrid_kernel<T, CPT, 2><<<b, kThreads, 0, s>>>(xs, grid, go, dgrid, D, H, W, C, gps, NV); break;
+      case 4: grid_dgrid_kernel<T, CPT, 4><<<b, kThreads, 0, s>>>(xs, grid, go, dgrid, D, H, W, C, gps, NV); break;
+      case 8: grid_dgrid_kernel<T, CPT, 8><<<b, kThreads, 0, s>>>(xs, grid, go, dgrid, D, H, W, C, gps, NV); break;
+      case 16: grid_dgrid_kernel<T, CPT, 16><<<b, kThreads, 0, s>>>(xs, grid, go, dgrid, D, H, W, C, gps, NV); break;
+      default: grid_dgrid_kernel<T, CPT, 32><<<b, kThreads, 0, s>>>(xs, grid, go, dgrid, D, H, W, C, gps, NV);
+    }
+  });
+}
+
+template <class Sink>
+int launch_grid_dx(const float* grid, const void* gout, Sink sink, int D, int H, int W, int C,
+                   int gps, int G, int NV, int dtype, int cpt, cudaStream_t s) {
+  return dispatch(dtype, cpt, [&](auto t, auto c) {
+    using T = std::remove_pointer_t<decltype(t)>;
+    constexpr int CPT = decltype(c)::value;
+    grid_dx_kernel<T, CPT, Sink><<<blocks((long long)NV * (C / CPT), G), kThreads, 0, s>>>(
+        grid, static_cast<const T*>(gout), sink, D, H, W, C, gps, NV);
   });
 }
 
 extern "C" int facevae_grid_bwd_dx(const float* grid, const void* gout, float* dx, int D,
                                    int H, int W, int C, int gps, int G, int NV, int dtype,
                                    int cpt, void* stream) {
-  return dispatch(dtype, cpt, [&](auto t, auto c) {
-    using T = std::remove_pointer_t<decltype(t)>;
-    constexpr int CPT = decltype(c)::value;
-    grid_dx_kernel<T, CPT><<<blocks((long long)NV * (C / CPT), G), kThreads, 0,
-                             static_cast<cudaStream_t>(stream)>>>(
-        grid, static_cast<const T*>(gout), dx, D, H, W, C, gps, NV);
-  });
+  return launch_grid_dx(grid, gout, FloatSink{dx}, D, H, W, C, gps, G, NV, dtype, cpt,
+                        static_cast<cudaStream_t>(stream));
+}
+
+// The deterministic dx: grid_dx_kernel with FixedSink into acc (int64,
+// zeroed) and flags (one word per 8 elements, zeroed) at the scale exponent
+// *scale_exp, then fixed_to_float_kernel into dx (fp32).
+extern "C" int facevae_grid_bwd_dx_det(const float* grid, const void* gout, void* acc,
+                                       void* flags, const int* scale_exp, float* dx, int D,
+                                       int H, int W, int C, int gps, int G, int NV, int dtype,
+                                       int cpt, void* stream) {
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const FixedSink sink{static_cast<unsigned long long*>(acc), static_cast<unsigned int*>(flags),
+                       scale_exp, 0};
+  const int err = launch_grid_dx(grid, gout, sink, D, H, W, C, gps, G, NV, dtype, cpt, s);
+  if (err) return err;
+  return launch_fixed_to_float(acc, flags, scale_exp, dx,
+                               (long long)(G / gps) * D * H * W * C, s);
 }

@@ -33,10 +33,16 @@ plain PyTorch versions.
                       d grid          csrc/warp_grid.cu (dgrid)   grid_sample_3d_bwd_plain
                       d source        csrc/warp_grid.cu (dx)      grid_sample_3d_bwd_plain
 
-A backward skips the half that autograd does not need.  The dx kernels add
-with atomics, so the last bits of dx vary from run to run: with
-torch.use_deterministic_algorithms(True) a CUDA backward that needs dx
-raises, as PyTorch's own grid_sample backward does.  The JAX package's
+A backward skips the half that autograd does not need.  By default the dx
+kernels add with fp32 atomics, so the last bits of dx vary from run to run.
+With torch.use_deterministic_algorithms(True) (warn_only too) the dx
+kernels sum in fixed point instead: each contribution rounded once to an int64 at a
+scale 2^s (``dx_scale_exponent``, from max|gout| on the card, no host sync)
+and added with integer atomics, whose order does not change the bits, then
+converted once to fp32 (non-finite contributions by flags, as IEEE adds
+them).  Its launches count under ``warp_bwd_dx_det`` / ``grid_bwd_dx_det``.
+It costs an int64 buffer twice the size of dx and scalar 64-bit atomics
+(PERF.md §6 has its times).  The JAX package's
 z-banding, channel grouping and VMEM planners exist for the TPU's memory and
 matrix unit and are not ported.  The multi-grid forward at K1 > 1 runs one
 block per (n, tile of output voxels) that writes its k-major output tile
@@ -54,10 +60,10 @@ import torch
 
 launches = {"warp_fwd": 0, "warp_fwd_plain": 0,
             "warp_bwd_dgrid": 0, "warp_bwd_dgrid_plain": 0,
-            "warp_bwd_dx": 0, "warp_bwd_dx_plain": 0,
+            "warp_bwd_dx": 0, "warp_bwd_dx_plain": 0, "warp_bwd_dx_det": 0,
             "grid_fwd": 0, "grid_fwd_plain": 0,
             "grid_bwd_dgrid": 0, "grid_bwd_dgrid_plain": 0,
-            "grid_bwd_dx": 0, "grid_bwd_dx_plain": 0}
+            "grid_bwd_dx": 0, "grid_bwd_dx_plain": 0, "grid_bwd_dx_det": 0}
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _MAX_GRID_Y = 65535
@@ -240,15 +246,17 @@ _SIGNATURES = {
                        [ctypes.c_void_p] * 8 + [ctypes.c_int] * 9 + [ctypes.c_void_p]),
     "warp_bwd_dx": ("warp_bwd", "facevae_warp_bwd_dx",
                     [ctypes.c_void_p] * 5 + [ctypes.c_int] * 9 + [ctypes.c_void_p]),
+    "warp_bwd_dx_det": ("warp_bwd", "facevae_warp_bwd_dx_det",
+                        [ctypes.c_void_p] * 8 + [ctypes.c_int] * 9 + [ctypes.c_void_p]),
     "grid_fwd": ("warp_grid", "facevae_grid_fwd",
                  [ctypes.c_void_p] * 3 + [ctypes.c_int] * 9 + [ctypes.c_void_p]),
     "grid_bwd_dgrid": ("warp_grid", "facevae_grid_bwd_dgrid",
                        [ctypes.c_void_p] * 4 + [ctypes.c_int] * 9 + [ctypes.c_void_p]),
     "grid_bwd_dx": ("warp_grid", "facevae_grid_bwd_dx",
                     [ctypes.c_void_p] * 3 + [ctypes.c_int] * 9 + [ctypes.c_void_p]),
+    "grid_bwd_dx_det": ("warp_grid", "facevae_grid_bwd_dx_det",
+                        [ctypes.c_void_p] * 6 + [ctypes.c_int] * 9 + [ctypes.c_void_p]),
 }
-
-
 
 
 def _check_x_cuda(name, x):
@@ -299,11 +307,29 @@ def _check_gout(gout, shape, x):
         raise ValueError(f"gout lies on {gout.device}, x on {x.device}")
 
 
-def _refuse_deterministic(op):
-    if torch.are_deterministic_algorithms_enabled():
-        raise RuntimeError(
-            f"{op}'s CUDA backward has no deterministic implementation: its dx kernel sums "
-            "with atomics (ROADMAP Queue 2 holds the deterministic mode)")
+def dx_scale_exponent(gout, count):
+    """The deterministic dx's scale 2^s, s an int32 0-dim tensor on gout's
+    device (computed there: no host sync).  M = max |finite gout|, count =
+    the most samples that can reach one dx element (each through one corner
+    of weight <= 1).  With M = mant * 2^e (mant in [0.5, 1)) and
+    2^(b-1) < count <= 2^b, s = 62 - b - e gives 2^60 < count * M * 2^s <
+    2^62: every int64 partial sum of the rounded contributions stays within
+    2^62 in any order, at a resolution 2^-s (M * 2^-42 at MFE, count =
+    15 * 65536)."""
+    a = gout.detach().abs()
+    m = torch.where(torch.isfinite(a), a, 0).amax().float()
+    _, e = torch.frexp(m)
+    return (62 - (count - 1).bit_length() - e).to(torch.int32)
+
+
+def _fixed_point_buffers(x, gout, count):
+    """The deterministic dx kernels' buffers: the int64 sums and the
+    non-finite flags (one int32 word per 8 elements), both zeroed, the scale
+    exponent, and the fp32 result."""
+    return (torch.zeros(x.shape, dtype=torch.int64, device=x.device),
+            torch.zeros((x.numel() + 7) // 8, dtype=torch.int32, device=x.device),
+            dx_scale_exponent(gout, count),
+            torch.empty(x.shape, dtype=torch.float32, device=x.device))
 
 
 def _cpt(C, item, *tensors):
@@ -344,14 +370,13 @@ def warp_multi_pixel_bwd_cuda(x, cgx, cgy, cgz, gout, spatial, need_dx=True,
     """Launch csrc/warp_bwd.cu's kernels on CUDA tensors (the dgrid kernel
     if need_dgrid, the dx kernel if need_dx); same contract as
     ``warp_multi_pixel_bwd_plain``.  gout is read in x's dtype; dx is summed
-    in an fp32 buffer and cast once.  Raises on anything the kernels do not
-    take, and on a dx request in deterministic mode (its atomics are not)."""
+    in an fp32 buffer (fixed point in int64 when
+    torch.are_deterministic_algorithms_enabled()) and cast once.  Raises on
+    anything the kernels do not take."""
     _check_cuda("warp_bwd", x, cgx, cgy, cgz, spatial)
     N, D, H, W, C = x.shape
     K1, NV = cgx.shape[1], cgx.shape[2]
     _check_gout(gout, (N, *spatial, K1 * C), x)
-    if need_dx:
-        _refuse_deterministic("warp_multi_pixel")
     gout = gout.to(x.dtype).contiguous()
     dtype, stream = _DTYPE_CODES[x.dtype], _stream(x)
     dx = dgrid = None
@@ -364,13 +389,18 @@ def warp_multi_pixel_bwd_cuda(x, cgx, cgy, cgz, gout, spatial, need_dx=True,
                         cgz.data_ptr(), gout.data_ptr(), *(d.data_ptr() for d in dgrid),
                         N, D, H, W, C, K1, NV, dtype, cpt, stream)
         if need_dx:
-            acc = torch.zeros(x.shape, dtype=torch.float32, device=x.device)
-            if cgx.numel():
-                cpt = _cpt(C, x.element_size(), gout, acc)
-                _launch("warp_bwd_dx", cgx.data_ptr(), cgy.data_ptr(), cgz.data_ptr(),
-                        gout.data_ptr(), acc.data_ptr(), N, D, H, W, C, K1, NV, dtype, cpt,
-                        stream)
-            dx = acc.to(x.dtype)
+            ptrs = (cgx.data_ptr(), cgy.data_ptr(), cgz.data_ptr(), gout.data_ptr())
+            if cgx.numel() and torch.are_deterministic_algorithms_enabled():
+                acc, flags, s, out = _fixed_point_buffers(x, gout, K1 * NV)
+                _launch("warp_bwd_dx_det", *ptrs, acc.data_ptr(), flags.data_ptr(),
+                        s.data_ptr(), out.data_ptr(), N, D, H, W, C, K1, NV, dtype,
+                        _cpt(C, x.element_size(), gout), stream)
+            else:
+                out = torch.zeros(x.shape, dtype=torch.float32, device=x.device)
+                if cgx.numel():
+                    _launch("warp_bwd_dx", *ptrs, out.data_ptr(), N, D, H, W, C, K1, NV,
+                            dtype, _cpt(C, x.element_size(), gout, out), stream)
+            dx = out.to(x.dtype)
     return dx, dgrid
 
 
@@ -394,15 +424,13 @@ def grid_sample_3d_bwd_cuda(x, grid, gout, grids_per_source=1, need_dx=True,
                             need_dgrid=True):
     """Launch csrc/warp_grid.cu's dgrid and / or dx kernels on CUDA tensors;
     same contract as ``grid_sample_3d_bwd_plain``.  gout is read in x's
-    dtype; dx is summed in an fp32 buffer and cast once.  Raises on
-    anything the kernels do not take, and on a dx request in deterministic
-    mode."""
+    dtype; dx is summed in an fp32 buffer (fixed point in int64 when
+    torch.are_deterministic_algorithms_enabled()) and cast once.  Raises on
+    anything the kernels do not take."""
     _check_grid_cuda("grid_bwd", x, grid, grids_per_source)
     D, H, W, C = x.shape[1:]
     G, NV = grid.shape[0], math.prod(grid.shape[1:4])
     _check_gout(gout, (*grid.shape[:4], C), x)
-    if need_dx:
-        _refuse_deterministic("grid_sample_3d_fast")
     gout = gout.to(x.dtype).contiguous()
     dtype, stream = _DTYPE_CODES[x.dtype], _stream(x)
     dx = dgrid = None
@@ -415,12 +443,18 @@ def grid_sample_3d_bwd_cuda(x, grid, gout, grids_per_source=1, need_dx=True,
                         dgrid.data_ptr(), D, H, W, C, grids_per_source, G, NV, dtype, cpt,
                         stream)
         if need_dx:
-            acc = torch.zeros(x.shape, dtype=torch.float32, device=x.device)
-            if grid.numel():
-                cpt = _cpt(C, x.element_size(), gout, acc)
-                _launch("grid_bwd_dx", grid.data_ptr(), gout.data_ptr(), acc.data_ptr(),
-                        D, H, W, C, grids_per_source, G, NV, dtype, cpt, stream)
-            dx = acc.to(x.dtype)
+            shape = (D, H, W, C, grids_per_source, G, NV, dtype)
+            if grid.numel() and torch.are_deterministic_algorithms_enabled():
+                acc, flags, s, out = _fixed_point_buffers(x, gout, grids_per_source * NV)
+                _launch("grid_bwd_dx_det", grid.data_ptr(), gout.data_ptr(), acc.data_ptr(),
+                        flags.data_ptr(), s.data_ptr(), out.data_ptr(), *shape,
+                        _cpt(C, x.element_size(), gout), stream)
+            else:
+                out = torch.zeros(x.shape, dtype=torch.float32, device=x.device)
+                if grid.numel():
+                    _launch("grid_bwd_dx", grid.data_ptr(), gout.data_ptr(), out.data_ptr(),
+                            *shape, _cpt(C, x.element_size(), gout, out), stream)
+            dx = out.to(x.dtype)
     return dx, dgrid
 
 

@@ -53,11 +53,17 @@ def avg_pool_2d(x: torch.Tensor, window: int = 2) -> torch.Tensor:
 
 
 def avg_pool_3d(x: torch.Tensor, window=(1, 2, 2)) -> torch.Tensor:
-    """[N,C,D,H,W]; the reference pools only H,W.  Averaged in fp32 at least
-    and returned in x's dtype, as the JAX package's mean does (PyTorch's CPU
-    avg_pool3d takes no bf16)."""
-    return F.avg_pool3d(x.to(torch.promote_types(x.dtype, torch.float32)),
-                        tuple(window)).to(x.dtype)
+    """[N,C,D,H,W] non-overlapping average pool (F.avg_pool3d with stride =
+    window: trailing rows that fill no window are dropped); the reference
+    pools only H,W.  A reshape and a mean over each window, averaged in fp32
+    at least and returned in x's dtype, as the JAX package's mean does: its
+    backward is a broadcast, deterministic on the card, where
+    avg_pool3d_backward_cuda has no deterministic implementation (and
+    PyTorch's CPU avg_pool3d takes no bf16)."""
+    (a, b, c), (N, C, D, H, W) = window, x.shape
+    d, h, w = D // a, H // b, W // c
+    y = x[:, :, :d * a, :h * b, :w * c].to(torch.promote_types(x.dtype, torch.float32))
+    return y.reshape(N, C, d, a, h, b, w, c).mean((3, 5, 7)).to(x.dtype)
 
 
 def max_pool_2d(x: torch.Tensor, window: int = 3, stride: int = 2,

@@ -2,7 +2,9 @@
 and its backward's dgrid and dx halves; the single-grid forward, dgrid and
 dx) and the four probe kernels (facevae_tpu_torch/probes/) against their
 plain versions, kernels 1 and 3 at the MFE and Generator shapes on the
-coordinate sets of facevae_tpu_torch/warp_inputs.py, the wrappers'
+coordinate sets of facevae_tpu_torch/warp_inputs.py, the deterministic dx
+kernels (under torch.use_deterministic_algorithms, and against the
+fixed-point emulation of tests/torch_parity.py bit for bit), the wrappers'
 refusals, the tiny golden pipeline through
 the forward kernels, and tiny fp32 and bf16 training steps through all of
 them.  Every test skips without a CUDA device.
@@ -14,6 +16,7 @@ import numpy as np
 import pytest
 import torch
 
+import contextlib
 import dataclasses
 import functools
 
@@ -156,18 +159,51 @@ def test_single_grid_forward_kernel_matches_plain(spatial, C, dtype):
     assert torch.equal(multi.reshape(single.shape), single)
 
 
+@contextlib.contextmanager
+def _deterministic(on=True):
+    """PyTorch's deterministic algorithms ``on`` (the wrappers then launch
+    the dx kernels' deterministic variants) for the block, off after."""
+    torch.use_deterministic_algorithms(on)
+    try:
+        yield
+    finally:
+        torch.use_deterministic_algorithms(False)
+
+
+def _deterministic_grads(fn, x):
+    """x.grad after fn().sum().backward() under deterministic algorithms,
+    strict and warn-only, with the launch counts of the two runs."""
+    fast_warp.reset_launch_counts()
+    grads = []
+    try:
+        for warn_only in (False, True):
+            torch.use_deterministic_algorithms(True, warn_only=warn_only)
+            x.grad = None
+            fn().sum().backward()
+            grads.append(x.grad.clone())
+    finally:
+        torch.use_deterministic_algorithms(False)
+    torch.cuda.synchronize()
+    return grads, dict(fast_warp.launches)
+
+
 def test_backward_skips_what_autograd_does_not_need():
+    """Only dx is asked for: the dx kernel alone.  Under deterministic
+    algorithms (warn-only too) the deterministic dx kernel instead, the same
+    bits in both runs, within 1e-5 of max|ref| of the plain version."""
     x, coords, spatial = _case(3, 2, 4, 8, 8, 4, 3, torch.float32)
     x.requires_grad_()
     fast_warp.reset_launch_counts()
     fast_warp.warp_multi_pixel(x, *coords, spatial).sum().backward()
     assert fast_warp.launches["warp_bwd_dx"] == 1 and fast_warp.launches["warp_bwd_dgrid"] == 0
-    torch.use_deterministic_algorithms(True)
-    try:
-        with pytest.raises(RuntimeError, match="deterministic"):
-            fast_warp.warp_multi_pixel(x, *coords, spatial).sum().backward()
-    finally:
-        torch.use_deterministic_algorithms(False)
+    grads, launches = _deterministic_grads(
+        lambda: fast_warp.warp_multi_pixel(x, *coords, spatial), x)
+    assert (launches["warp_bwd_dx_det"], launches["warp_bwd_dx"]) == (2, 0)
+    assert torch.equal(grads[0], grads[1])
+    gout = torch.ones(2, *spatial, 3 * 4, device="cuda")
+    ref = fast_warp.warp_multi_pixel_bwd_plain(x.detach(), *coords, gout, spatial,
+                                               need_dgrid=False)[0]
+    assert_close(grads[0], ref, 1e-5, "deterministic dx")
 
 
 def test_kernel_wrapper_refuses_what_it_cannot_take():
@@ -251,14 +287,17 @@ def test_grid_wrappers_refuse_what_they_cannot_take():
     xg = x.clone().requires_grad_()
     fast_warp.grid_sample_3d_fast(xg, grid, 2).sum().backward()
     assert (fast_warp.launches["grid_bwd_dx"], fast_warp.launches["grid_bwd_dgrid"]) == (1, 0)
-    torch.use_deterministic_algorithms(True)
-    try:
-        with pytest.raises(RuntimeError, match="deterministic"):
-            fast_warp.grid_sample_3d_fast(xg, grid, 2).sum().backward()
+    # deterministic algorithms (warn-only too): the deterministic dx kernel,
+    # the same bits twice, within 1e-5 of max|ref| of the plain version
+    grads, launches = _deterministic_grads(lambda: fast_warp.grid_sample_3d_fast(xg, grid, 2), xg)
+    assert (launches["grid_bwd_dx_det"], launches["grid_bwd_dx"]) == (2, 0)
+    assert torch.equal(grads[0], grads[1])
+    ref = fast_warp.grid_sample_3d_bwd_plain(x, grid, torch.ones_like(gout), 2,
+                                             need_dgrid=False)[0]
+    assert_close(grads[0], ref, 1e-5, "deterministic dx")
+    with _deterministic():
         gg = grid.clone().requires_grad_()           # dgrid alone has no atomics
         fast_warp.grid_sample_3d_fast(x, gg, 2).sum().backward()
-    finally:
-        torch.use_deterministic_algorithms(False)
 
 
 def _site(site, cset, dtype, seed):
@@ -300,10 +339,12 @@ def test_kernels_1_and_3_match_plain_at_call_sites(site, cset, dtype):
     assert_close(out.float(), ref.float(), tol, "forward")
 
 
-def test_dx_with_a_non_finite_cotangent():
+@pytest.mark.parametrize("deterministic", [False, True])
+def test_dx_with_a_non_finite_cotangent(deterministic):
     """A cotangent holding an inf and a NaN: the dx voxels those samples
     touch are non-finite where the plain version's are, and every other
-    voxel is within 1e-5 of it."""
+    voxel is within 1e-5 of it, from the default and the deterministic dx
+    kernel (whose flags give NaN / inf by IEEE's sum rules)."""
     x, coords, gout, spatial = _site("MFE", "sparse", torch.float32, 16)
     # two samples of source 0 with all 8 corners inside the volume (the plain
     # version would also add 0 * nan at the index it clamps outer corners to)
@@ -313,12 +354,109 @@ def test_dx_with_a_non_finite_cotangent():
     gout = gout.clone()
     per_k = gout[0].view(-1, 15, 4)
     per_k[v0, k0, 0], per_k[v1, k1, 2] = float("nan"), float("inf")
-    dx = fast_warp.warp_multi_pixel_bwd_cuda(x, *coords, gout, spatial, need_dgrid=False)[0]
+    fast_warp.reset_launch_counts()
+    with _deterministic(deterministic):
+        dx = fast_warp.warp_multi_pixel_bwd_cuda(x, *coords, gout, spatial, need_dgrid=False)[0]
     ref = fast_warp.warp_multi_pixel_bwd_plain(x, *coords, gout, spatial, need_dgrid=False)[0]
     torch.cuda.synchronize()
+    assert fast_warp.launches["warp_bwd_dx_det" if deterministic else "warp_bwd_dx"] == 1
     bad = ~torch.isfinite(ref)
     assert bad.any() and torch.equal(~torch.isfinite(dx), bad)
+    assert torch.equal(torch.isnan(dx), torch.isnan(ref))
     assert_close(torch.where(bad, 0.0, dx), torch.where(bad, 0.0, ref), 1e-5, "finite part")
+
+
+def _stepped_coords(N, K1, spatial, step, g):
+    """Pixel coordinates [3][N,K1,NV] whose x advances by exactly ``step``
+    per voxel along W (so neighbouring lanes share corners), y and z the
+    voxel's own, each (n, k) shifted by a random offset (0 for k = 0: exact
+    integers there, the upper corners weighing 0)."""
+    D, H, W = spatial
+    z, y, x = torch.meshgrid(*(torch.arange(s, device="cuda", dtype=torch.float32)
+                               for s in spatial), indexing="ij")
+    shift = torch.rand(3, N, K1, 1, generator=g, device="cuda") * 2 - 1
+    shift[:, :, 0] = 0
+    return [(base.reshape(1, 1, -1) * scale + shift[a]).contiguous()
+            for a, (base, scale) in enumerate(((x, step), (y, 1.0), (z, 1.0)))]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("step, C", [(1.0, 4), (0.5, 4), (1.0, 64), ("noisy", 4)])
+def test_dx_lane_pairing_matches_plain(step, C, dtype):
+    """Kernel 3 pairs lane i's upper x corner with lane i + 1's lower one:
+    on maps whose x-step is exactly 1 (every pair meets) and 0.5 (every
+    other), and on the noisy set (scattered), against the plain version
+    (1e-5 of max|ref| fp32, 1e-2 bf16).  C = 64 holds no vectors in
+    registers (16 fp32 vectors).  The deterministic kernel gives the bits of
+    the fixed-point emulation (torch_parity.fixed_point_dx), which sums the
+    same rounded contributions without pairing, and the same bits with the
+    K1 grids permuted."""
+    from facevae_tpu_torch.warp_inputs import noisy_coords
+    from torch_parity import fixed_point_dx
+    N, K1, spatial = 2, 15, (3, 8, 64)
+    g = torch.Generator(device="cuda").manual_seed(C)
+    coords = (noisy_coords(N, K1, *spatial, g) if step == "noisy"
+              else _stepped_coords(N, K1, spatial, step, g))
+    x = torch.randn(N, *spatial, C, generator=g, device="cuda").to(dtype)
+    gout = torch.randn(N, *spatial, K1 * C, generator=g, device="cuda").to(dtype)
+    tol = 1e-5 if dtype == torch.float32 else 1e-2
+    fast_warp.reset_launch_counts()
+    dx = fast_warp.warp_multi_pixel_bwd_cuda(x, *coords, gout, spatial, need_dgrid=False)[0]
+    perm = torch.randperm(K1, generator=torch.Generator().manual_seed(1)).cuda()
+    pgout = gout.reshape(N, -1, K1, C)[:, :, perm].reshape(gout.shape).contiguous()
+    with _deterministic():
+        det = fast_warp.warp_multi_pixel_bwd_cuda(x, *coords, gout, spatial,
+                                                  need_dgrid=False)[0]
+        det_perm = fast_warp.warp_multi_pixel_bwd_cuda(
+            x, *(c[:, perm].contiguous() for c in coords), pgout, spatial, need_dgrid=False)[0]
+    ref = fast_warp.warp_multi_pixel_bwd_plain(x, *coords, gout, spatial, need_dgrid=False)[0]
+    torch.cuda.synchronize()
+    assert (fast_warp.launches["warp_bwd_dx"], fast_warp.launches["warp_bwd_dx_det"]) == (1, 2)
+    assert_close(dx.float(), ref.float(), tol, "dx")
+    assert_close(det.float(), ref.float(), tol, "deterministic dx")
+    assert torch.equal(det, det_perm)
+    s = int(fast_warp.dx_scale_exponent(gout, K1 * spatial[0] * spatial[1] * spatial[2]))
+    rows = fast_warp._gout_k_major(gout, torch.float32, N, K1, x[0, ..., 0].numel(), C)
+    emulated = fixed_point_dx(tuple(x.shape), [c.cpu() for c in coords], rows.cpu(), s)
+    assert torch.equal(det.cpu(), emulated.to(dtype))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("C", [4, 5, 8, 32])
+def test_grid_dgrid_kernel_matches_plain(C, dtype):
+    """Kernel 5 runs LANES threads per voxel (C / CPT rounded up to a power
+    of two: 1, 8, 2, 8 fp32; 1, 8, 1, 4 bf16) and reduces with shuffles:
+    1e-5 of max|ref| of the plain version in both dtypes (fp32 sums of the
+    same products in another order), on 3 x 11 x 13 voxels (the last block
+    ragged) at gps = 2 with integer, last-index, far-out, +-inf and NaN
+    coordinates."""
+    x, grid, gout = _grid_case(C, 2, 3, 11, 13, C, 2, dtype)
+    fast_warp.reset_launch_counts()
+    dgrid = fast_warp.grid_sample_3d_bwd_cuda(x, grid, gout, 2, need_dx=False)[1]
+    ref = fast_warp.grid_sample_3d_bwd_plain(x, grid, gout, 2, need_dx=False)[1]
+    torch.cuda.synchronize()
+    assert fast_warp.launches["grid_bwd_dgrid"] == 1
+    assert dgrid.dtype == torch.float32 and torch.isfinite(dgrid).all()
+    assert_close(dgrid, ref, 1e-5, f"dgrid C={C} {dtype}")
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_grid_dx_deterministic_matches_the_emulation(dtype):
+    """Kernel 6's deterministic variant gives the bits of the fixed-point
+    emulation, twice, at gps = 3."""
+    from torch_parity import fixed_point_dx
+    x, grid, gout = _grid_case(9, 2, 3, 11, 13, 8, 3, dtype)
+    with _deterministic():
+        runs = [fast_warp.grid_sample_3d_bwd_cuda(x, grid, gout, 3, need_dgrid=False)[0]
+                for _ in range(2)]
+    torch.cuda.synchronize()
+    N, D, H, W, C = x.shape
+    coords = fast_warp._grid_pixels(x.cpu(), grid.cpu(), 3)
+    s = int(fast_warp.dx_scale_exponent(gout, 3 * D * H * W))
+    emulated = fixed_point_dx(tuple(x.shape), coords,
+                              gout.cpu().float().reshape(N, -1, C), s)
+    assert torch.equal(runs[0], runs[1])
+    assert torch.equal(runs[0].cpu(), emulated.to(dtype))
 
 
 def test_tile_kernel_agrees_with_the_grid_kernel_at_mfe():

@@ -138,10 +138,10 @@ def test_server_batches_requests(env):
         # Generator's single-grid warp (fp32), both by their plain versions
         assert fast_warp.launches == {"warp_fwd": 0, "warp_fwd_plain": 3, "warp_bwd_dgrid": 0,
                                       "warp_bwd_dgrid_plain": 0, "warp_bwd_dx": 0,
-                                      "warp_bwd_dx_plain": 0, "grid_fwd": 0,
-                                      "grid_fwd_plain": 3, "grid_bwd_dgrid": 0,
+                                      "warp_bwd_dx_plain": 0, "warp_bwd_dx_det": 0,
+                                      "grid_fwd": 0, "grid_fwd_plain": 3, "grid_bwd_dgrid": 0,
                                       "grid_bwd_dgrid_plain": 0, "grid_bwd_dx": 0,
-                                      "grid_bwd_dx_plain": 0}
+                                      "grid_bwd_dx_plain": 0, "grid_bwd_dx_det": 0}
     finally:
         server.shutdown()
         server.server_close()

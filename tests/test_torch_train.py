@@ -166,8 +166,9 @@ def test_step_losses_and_plain_launches(env, stepped):
     # warp and the Generator's single-grid warp (fp32)
     assert launches == {"warp_fwd": 0, "warp_fwd_plain": 1, "warp_bwd_dgrid": 0,
                         "warp_bwd_dgrid_plain": 1, "warp_bwd_dx": 0, "warp_bwd_dx_plain": 1,
-                        "grid_fwd": 0, "grid_fwd_plain": 1, "grid_bwd_dgrid": 0,
-                        "grid_bwd_dgrid_plain": 1, "grid_bwd_dx": 0, "grid_bwd_dx_plain": 1}
+                        "warp_bwd_dx_det": 0, "grid_fwd": 0, "grid_fwd_plain": 1,
+                        "grid_bwd_dgrid": 0, "grid_bwd_dgrid_plain": 1, "grid_bwd_dx": 0,
+                        "grid_bwd_dx_plain": 1, "grid_bwd_dx_det": 0}
 
 
 @pytest.mark.parametrize("name", G_MODEL_NAMES + D_MODEL_NAMES)

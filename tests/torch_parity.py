@@ -63,3 +63,50 @@ def one_torch_thread():
     torch.set_num_threads(1)
     yield
     torch.set_num_threads(n)
+
+
+def corner_contributions(shape, coords, g):
+    """Every corner inside the volume of every sample, as the dx kernels walk
+    them: yields (n, flat voxel index [m], contribution [m, C]) per source n
+    and corner, the contribution w * g in fp32 with w = (wz * wy) * wx, the
+    kernels' order of operations.  shape: x's [N,D,H,W,C]; coords [3][N,K,NV]
+    fp32 pixel coordinates; g [N, K*NV, C] fp32, rows in (k, v) order."""
+    N, D, H, W, C = shape
+    p = [c.float().reshape(N, -1) for c in coords]
+    f = [torch.floor(c) for c in p]
+    t = [c - fl for c, fl in zip(p, f)]
+    for dz in (0, 1):
+        wz = t[2] if dz else 1 - t[2]
+        for dy in (0, 1):
+            wzy = wz * (t[1] if dy else 1 - t[1])
+            for dx in (0, 1):
+                w = wzy * (t[0] if dx else 1 - t[0])
+                j = [f[a] + d for a, d in enumerate((dx, dy, dz))]
+                ok = torch.ones_like(w, dtype=torch.bool)
+                for ja, size in zip(j, (W, H, D)):
+                    ok &= (ja >= 0) & (ja <= size - 1)
+                jx, jy, jz = (torch.where(ok, ja, 0).long() for ja in j)
+                flat = (jz * H + jy) * W + jx
+                c = w[..., None] * g
+                for n in range(N):
+                    yield n, flat[n][ok[n]], c[n][ok[n]]
+
+
+def fixed_point_dx(shape, coords, g, s):
+    """The deterministic dx kernels' sum (csrc/warp_common.cuh, FixedSink),
+    emulated on the CPU: each finite contribution of corner_contributions
+    rounded once to round(c * 2^s) in int64 and summed with index_add_
+    (integers: any order gives the same bits); non-finite ones flagged per
+    element and summed by IEEE's rules; then acc * 2^-s in fp32."""
+    N, D, H, W, C = shape
+    acc = torch.zeros(N, D * H * W, C, dtype=torch.int64)
+    flags = torch.zeros(3, N, D * H * W, C, dtype=torch.int64)   # NaN, +inf, -inf
+    for n, idx, c in corner_contributions(shape, coords, g):
+        q = torch.round(torch.where(torch.isfinite(c), c, 0).double() * 2.0 ** s).long()
+        acc[n].index_add_(0, idx, q)
+        for i, bad in enumerate((c.isnan(), c == float("inf"), c == float("-inf"))):
+            flags[i, n].index_add_(0, idx, bad.long())
+    out = (acc.to(torch.float32).double() * 2.0 ** -s).float()
+    nan, pos, neg = flags > 0
+    out = torch.where(pos, float("inf"), torch.where(neg, float("-inf"), out))
+    return torch.where(nan | (pos & neg), float("nan"), out).reshape(shape)
