@@ -22,7 +22,11 @@ Phases, each fatal on failure (exit code 1, no result line):
               single-grid warp (forward, dgrid, dx) at the Generator shape
               (gps=1, a deformation-like grid) and the reference-form MFE
               shape x[8,16,64,64,4] (gps=16 grids from create_sparse_motions
-              on seeded keypoints).  The device time per call of the kernel
+              on seeded keypoints).  Both warps also at the Generator shape
+              on a smooth set, one keypoint's sparse motion (K1 = 1;
+              normalized for the single-grid warp), clean and with the
+              probes: the dx kernels pair neighbouring voxels' corners, and
+              smooth coordinates are where the pairs form.  The device time per call of the kernel
               and of F.grid_sample's forward / backward in x's dtype (a
               yardstick the port never calls, the source repeated per grid):
               10 calls in one CUDA graph, median of 20 replays; the kernel's
@@ -153,7 +157,11 @@ SITES = (("MFE", "warp", 4, 15, VOLUME, BOTH, ALL, True),
          ("Generator", "warp", 32, 1, VOLUME, BOTH, ALL, True),
          ("TPS", "warp", 3, 1, (1, 256, 256), ("bfloat16",), ("fwd",), False),
          ("Generator", "grid", 32, 1, VOLUME, BOTH, ALL, True),
-         ("MFE reference form", "grid", 4, 16, VOLUME, BOTH, ALL, False))
+         ("MFE reference form", "grid", 4, 16, VOLUME, BOTH, ALL, False),
+         ("Generator sparse motion", "warp", 32, 1, VOLUME, BOTH, ALL, False),
+         ("Generator sparse motion + probes", "warp", 32, 1, VOLUME, BOTH, ALL, False),
+         ("Generator sparse motion", "grid", 32, 1, VOLUME, BOTH, ALL, False),
+         ("Generator sparse motion + probes", "grid", 32, 1, VOLUME, BOTH, ALL, False))
 HBM_BYTES_PER_S = 3.35e12         # H100 SXM
 FP32_FLOPS = 67e12                # H100 SXM, fp32 outside the tensor cores
 # kernel vs plain limits, relative to max|plain|: the forward and dgrid
@@ -252,32 +260,6 @@ def _bound_ms(half, N, D, H, W, C, K1, item):
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
 
 
-def _library_calls(x, grid, gout):
-    """F.grid_sample (3D, bilinear, zeros, align_corners=True) on the same
-    samples, in x's dtype: x [N,D,H,W,C] repeated per grid as NCDHW, the
-    normalized grid [G,D,H,W,3] (rounded to bf16 for a bf16 x, as
-    F.grid_sample takes one dtype: a yardstick of time, never compared), the
-    cotangent [G,D,H,W,C]; its forward, and its backward (the one aten call
-    autograd makes, so a CUDA graph can hold it) for the grid alone and for
-    the source alone."""
-    import torch
-    import torch.nn.functional as F
-    N, D, H, W, C = x.shape
-    G = grid.shape[0]
-    src = (x.permute(0, 4, 1, 2, 3)[:, None].expand(N, G // N, C, D, H, W)
-           .reshape(G, C, D, H, W).contiguous())
-    grid = torch.nan_to_num(grid, posinf=1e6, neginf=-1e6).to(x.dtype)
-    g = gout.to(x.dtype).permute(0, 4, 1, 2, 3).contiguous()
-
-    def bwd(mask):
-        # interpolation 0 = bilinear, padding 0 = zeros, align_corners
-        return lambda: torch.ops.aten.grid_sampler_3d_backward(g, src, grid, 0, 0, True, mask)
-
-    return {"fwd": lambda: F.grid_sample(src, grid, mode="bilinear", padding_mode="zeros",
-                                         align_corners=True),
-            "bwd_dgrid": bwd([False, True]), "bwd_dx": bwd([True, False])}
-
-
 def _deterministic(fn):
     """fn() under torch.use_deterministic_algorithms(True), where the
     wrappers launch the dx kernels' deterministic variants; the mode off
@@ -359,6 +341,7 @@ def phase_kernels():
     import torch
     from facevae_tpu_torch.warp_inputs import (noisy_coords, normalized, reference_form_grid,
                                                sparse_motion_coords)
+    from facevae_tpu_torch.bench_warp import library_calls
     from facevae_tpu_torch.probes.common import graph_ms
     g = torch.Generator(device="cuda").manual_seed(0)
     rows, cross = [], []
@@ -370,7 +353,7 @@ def phase_kernels():
             grid = reference_form_grid(N, K1 - 1, D, H, W, g)
         else:
             coords = (sparse_motion_coords(N, K1, D, H, W, g, probes=site.endswith("probes"))
-                      if site.startswith("MFE sparse motion") else noisy_coords(N, K1, D, H, W, g))
+                      if "sparse motion" in site else noisy_coords(N, K1, D, H, W, g))
             if site == "TPS":                      # a D=1 frame: z is exactly 0
                 coords[2] = torch.zeros_like(coords[2])
             grid = normalized(coords, D, H, W)     # the same samples, normalized
@@ -382,7 +365,7 @@ def phase_kernels():
             gout = (gout_gm if family == "grid" else
                     gout_gm.reshape(N, K1, -1, C).permute(0, 2, 1, 3).reshape(N, D, H, W, K1 * C))
             calls = _site_calls(family, x, coords, grid, gout, K1, spatial)
-            library = _library_calls(x, grid, gout_gm)
+            library = library_calls(x, grid, gout_gm)
             for name, (kernel, plain) in calls.items():
                 half = name.split("_", 1)[1].removesuffix("_det")
                 if half not in halves:

@@ -15,20 +15,31 @@ shared arguments are used.  Run the two checkouts in turns in one call
 Multi-grid sites: MFE (x [8,16,64,64,4], K1=15) on four coordinate sets,
 Generator (x [8,16,64,64,32], K1=1) and the TPS frame (x [8,1,256,256,3],
 K1=1, forward only, bf16), fp32 and bf16.  The sets: ``noisy``, ``sparse``
-and ``sparse+probes`` (facevae_tpu_torch/warp_inputs.py), and ``step``: the
-source features and coordinates of MFE's warp call in the first training
-step of ModelConfig() at batch 8 in the case's dtype (seeded random weights
-and images, as facevae_tpu_torch/bench.py builds the step), the call the
-trained main path makes.  Single-grid sites: the Generator (gps=1, the
-noisy set normalized) and the reference-form MFE call (x [8,16,64,64,4],
-gps=16, warp_inputs.reference_form_grid), fp32 and bf16.  The inputs come
-from this checkout's warp_inputs.py, so both checkouts get the same ones.
+and ``sparse+probes`` (facevae_tpu_torch/warp_inputs.py; ``sparse`` at
+K1=1 for the Generator, one keypoint's smooth motion), and ``step``: the
+inputs of the warp call in the first training step of ModelConfig() at
+batch 8 in the case's dtype (seeded random weights and images, as
+facevae_tpu_torch/bench.py builds the step), the calls the trained main
+path makes: MFE's source features and coordinates (fp32, bf16), and the
+Generator's appearance volume and deformation (``generator_step_inputs``:
+its normalized grid for the single-grid kernels at fp32, its pixel
+coordinates at K1=1 for the multi-grid kernels at bf16, as warp_single
+dispatches).  Single-grid sites: the Generator (gps=1, the noisy and
+sparse sets normalized, and its step set) and the reference-form MFE call
+(x [8,16,64,64,4], gps=16, warp_inputs.reference_form_grid), fp32 and
+bf16.  The inputs come from this checkout's warp_inputs.py and this
+script's recorders, so both checkouts get the same ones (a step set is
+computed by the timed checkout's own step, whose forward kernels are the
+same bits in both so far: the input digests say so).
 Per case one JSON line: the device time per call of the forward, dgrid and
 dx kernels and, where the checkout has it, the dx kernels' deterministic
 variant (``dx_det``; probes/common.py:graph_ms: 10 calls in one CUDA graph,
 median of 20 replays), a digest of the inputs and of the forward's,
 dgrid's and dx_det's outputs (equal digests on equal inputs: equal bits),
-under the card's name and power limit.  Needs a CUDA card.
+under the card's name and power limit, and the device time of
+F.grid_sample's forward and backward on the same samples
+(``library_calls``: the yardstick chip_smoke.py phase 3 prints beside the
+kernels, never called by the port).  Needs a CUDA card.
 """
 from __future__ import annotations
 
@@ -55,7 +66,11 @@ CASES = (("MFE", "warp", 4, 15, VOLUME, "noisy", ("float32", "bfloat16"), ALL),
          ("MFE", "warp", 4, 15, VOLUME, "step", ("float32", "bfloat16"), ALL),
          ("Generator", "grid", 32, 1, VOLUME, "noisy", ("float32", "bfloat16"), ALL),
          ("MFE reference form", "grid", 4, 16, VOLUME, "reference form",
-          ("float32", "bfloat16"), ALL))
+          ("float32", "bfloat16"), ALL),
+         ("Generator", "warp", 32, 1, VOLUME, "step", ("bfloat16",), ALL),
+         ("Generator", "grid", 32, 1, VOLUME, "step", ("float32",), ALL),
+         ("Generator", "warp", 32, 1, VOLUME, "sparse", ("float32", "bfloat16"), ALL),
+         ("Generator", "grid", 32, 1, VOLUME, "sparse", ("float32", "bfloat16"), ALL))
 
 
 def _inputs_module():
@@ -68,37 +83,68 @@ def _inputs_module():
     return module
 
 
+def record_first_call(cfg, module, name, device="cuda", batch=N_BATCH):
+    """Run the first training step of ``cfg`` at ``batch`` on ``device``
+    (seeded weights, as create_train_state builds them, and seeded random
+    images, as facevae_tpu_torch/bench.py builds the step) with
+    ``module.<name>`` patched to record the arguments of its first call;
+    returns (those arguments, tensors detached, contiguous and cloned; the
+    step's output).  The patch calls the real function, so the step is the
+    one it would be, and is undone when the step returns or raises."""
+    import torch
+    from facevae_tpu_torch.train import create_train_state, train_step
+    size = cfg.model.image_size
+    state = create_train_state(cfg, device=torch.device(device))
+    g = torch.Generator(device=device).manual_seed(0)
+    images = tuple(torch.rand(batch, size, size, 3, generator=g, device=device)
+                   for _ in range(4))
+    seen = []
+    real = getattr(module, name)
+
+    def record(*args):
+        if not seen:
+            seen.append(tuple(a.detach().contiguous().clone() if torch.is_tensor(a) else a
+                              for a in args))
+        return real(*args)
+
+    setattr(module, name, record)
+    try:
+        out = train_step(state, images, generator=g)
+    finally:
+        setattr(module, name, real)
+    del state
+    if torch.device(device).type == "cuda":
+        torch.cuda.empty_cache()
+    return seen[0], out
+
+
 def step_inputs(dtype):
     """(x, [cgx, cgy, cgz]) of MFE's warp call in the first training step
-    of ModelConfig(compute_dtype=dtype), batch 8, on the card: the call
-    recorded as the step makes it (its backward runs too)."""
-    import torch
+    of ModelConfig(compute_dtype=dtype), batch 8, on the card."""
     from facevae_tpu_torch.config import Config, ModelConfig
     from facevae_tpu_torch.models import mfe
-    from facevae_tpu_torch.train import create_train_state, train_step
-    cfg = Config(model=ModelConfig(compute_dtype=dtype))
-    size = cfg.model.image_size
-    state = create_train_state(cfg, device=torch.device("cuda"))
-    g = torch.Generator(device="cuda").manual_seed(0)
-    batch = tuple(torch.rand(N_BATCH, size, size, 3, generator=g, device="cuda")
-                  for _ in range(4))
-    seen = []
-    real = mfe.warp_multi_pixel
+    (x, cgx, cgy, cgz, _), _ = record_first_call(
+        Config(model=ModelConfig(compute_dtype=dtype)), mfe, "warp_multi_pixel")
+    return x, [cgx, cgy, cgz]
 
-    def record(x, cgx, cgy, cgz, spatial):
-        if not seen:
-            seen.append((x.detach().clone(), [c.detach().contiguous().clone()
-                                              for c in (cgx, cgy, cgz)]))
-        return real(x, cgx, cgy, cgz, spatial)
 
-    mfe.warp_multi_pixel = record
-    try:
-        train_step(state, batch, generator=g)
-    finally:
-        mfe.warp_multi_pixel = real
-    del state
-    torch.cuda.empty_cache()
-    return seen[0]
+def generator_step_inputs(dtype, device="cuda", cfg=None, batch=N_BATCH):
+    """The Generator's warp_single call in the first training step of
+    ``cfg`` (default Config(): ModelConfig()) at compute_dtype ``dtype``:
+    the source volume x [N,D,H,W,C] and, at fp32 (the single-grid kernels
+    4-6 at gps = 1), its normalized grid [N,D,H,W,3]; at bf16 (the
+    multi-grid kernels 1-3 at K1 = 1) the pixel coordinates [cgx, cgy, cgz]
+    [N,1,D*H*W] that warp_single hands the multi-grid warp."""
+    import dataclasses
+    from facevae_tpu_torch.config import Config
+    from facevae_tpu_torch.models import generator
+    from facevae_tpu_torch.ops.fast_warp import _grid_pixels
+    cfg = cfg or Config()
+    cfg = dataclasses.replace(cfg, model=dataclasses.replace(cfg.model, compute_dtype=dtype))
+    (x, grid), _ = record_first_call(cfg, generator, "warp_single", device, batch)
+    if dtype == "float32":
+        return x, grid
+    return x, [c.contiguous() for c in _grid_pixels(x, grid, 1)]
 
 
 def case_inputs(site, family, C, K1, volume, cset, g):
@@ -110,8 +156,9 @@ def case_inputs(site, family, C, K1, volume, cset, g):
     if cset == "reference form":
         return inputs.reference_form_grid(N_BATCH, K1 - 1, D, H, W, g)
     if cset.startswith("sparse"):
-        return inputs.sparse_motion_coords(N_BATCH, K1, D, H, W, g,
-                                           probes=cset == "sparse+probes")
+        coords = inputs.sparse_motion_coords(N_BATCH, K1, D, H, W, g,
+                                             probes=cset == "sparse+probes")
+        return inputs.normalized(coords, D, H, W) if family == "grid" else coords
     coords = inputs.noisy_coords(N_BATCH, K1, D, H, W, g)
     if site == "TPS":                              # a D=1 frame: z is exactly 0
         coords[2] = torch.zeros_like(coords[2])
@@ -160,6 +207,46 @@ def _calls(fw, family, x, inp, gout, K1, volume):
     return calls
 
 
+def library_calls(x, grid, gout):
+    """F.grid_sample (3D, bilinear, zeros, align_corners=True) on the same
+    samples, in x's dtype: x [N,D,H,W,C] repeated per grid as NCDHW, the
+    normalized grid [G,D,H,W,3] (rounded to bf16 for a bf16 x, as
+    F.grid_sample takes one dtype: a yardstick of time, never compared), the
+    cotangent [G,D,H,W,C]; half -> its forward ("fwd"), and its backward
+    (the one aten call autograd makes, so a CUDA graph can hold it) for the
+    grid alone ("bwd_dgrid") and for the source alone ("bwd_dx").  The port
+    never calls it; chip_smoke.py phase 3 and run() time it."""
+    import torch
+    import torch.nn.functional as F
+    N, D, H, W, C = x.shape
+    G = grid.shape[0]
+    src = (x.permute(0, 4, 1, 2, 3)[:, None].expand(N, G // N, C, D, H, W)
+           .reshape(G, C, D, H, W).contiguous())
+    grid = torch.nan_to_num(grid, posinf=1e6, neginf=-1e6).to(x.dtype)
+    g = gout.to(x.dtype).permute(0, 4, 1, 2, 3).contiguous()
+
+    def bwd(mask):
+        # interpolation 0 = bilinear, padding 0 = zeros, align_corners
+        return lambda: torch.ops.aten.grid_sampler_3d_backward(g, src, grid, 0, 0, True, mask)
+
+    return {"fwd": lambda: F.grid_sample(src, grid, mode="bilinear", padding_mode="zeros",
+                                         align_corners=True),
+            "bwd_dgrid": bwd([False, True]), "bwd_dx": bwd([True, False])}
+
+
+def _library_of(family, x, inp, gout, K1, volume):
+    """half -> library_calls' call on one case's samples (the multi-grid
+    coordinates normalized, the k-major cotangent made grid-major)."""
+    if family == "grid":
+        calls = library_calls(x, inp, gout)
+    else:
+        N, C = x.shape[0], x.shape[-1]
+        grid = _inputs_module().normalized(inp, *volume)
+        gm = gout.reshape(N, -1, K1, C).permute(0, 2, 1, 3).reshape(N * K1, *volume, C)
+        calls = library_calls(x, grid, gm)
+    return {"fwd": calls["fwd"], "dgrid": calls["bwd_dgrid"], "dx": calls["bwd_dx"]}
+
+
 def smi():
     return subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                           capture_output=True, text=True, timeout=60,
@@ -167,7 +254,8 @@ def smi():
 
 
 def run():
-    """One dict per (case, dtype): the halves' device ms per call and the
+    """One dict per (case, dtype): the halves' device ms per call, those of
+    library_calls on the same samples (``library_<half>_ms``), and the
     digests."""
     import torch
     from facevae_tpu_torch.ops import fast_warp as fw
@@ -180,7 +268,7 @@ def run():
         for dname in dtypes:
             dtype = getattr(torch, dname)
             if cset == "step":
-                x, inp = step_inputs(dname)
+                x, inp = step_inputs(dname) if site == "MFE" else generator_step_inputs(dname)
             else:
                 x = torch.randn(N_BATCH, *volume, C, generator=g, device="cuda").to(dtype)
             gout = (torch.randn(N_BATCH, *volume, K1 * C, generator=g, device="cuda")
@@ -190,6 +278,9 @@ def run():
             halves_here = [*halves, *(["dx_det"] if "dx" in halves and "dx_det" in calls else [])]
             row = dict(site=site, family=family, set=cset, dtype=dname, C=C, K1=K1)
             row.update({f"{h}_ms": graph_ms(calls[h]) for h in halves_here})
+            row.update({f"library_{h}_ms": graph_ms(call) for h, call in
+                        _library_of(family, x, inp, gout, K1, volume).items()
+                        if h in halves})
             row["in_digest"] = digest(x, *(inp if family == "warp" else (inp,)), gout)
             for h in halves_here:
                 if h != "dx":                      # dx adds with atomics: its bits vary

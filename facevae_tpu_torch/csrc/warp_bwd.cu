@@ -43,11 +43,30 @@
 // its pace: on MFE's sparse-motion coordinates the dx kernel runs at ~20% of
 // its byte bound, on scattered ones at ~10%.
 //
-// Design: one thread per (n, k, v); blockIdx.y = n * K1 + k, so coordinate
-// reads coalesce.  The dgrid kernel walks the 8 corners and, inside each, the
-// C channels in vectors of CPT (16 bytes where C allows it), and owns its
-// three outputs (no atomics).  The dx kernel (a) loads its cotangent vectors
-// once (registers, up to 8 vectors) instead of at each corner, and (b) pairs
+// The dgrid kernel's first design ran a thread per (n, k, v) that read its
+// whole cotangent vector again at each of the 8 corners: at MFE (C = 4) 16 B
+// at 240 B intervals, from gout rows whose 15 grids ran far apart in time
+// (blockIdx.y = n * K1 + k) and that do not fit the 50 MB L2 (126 MB); at the
+// Generator (C = 32) 64 loads a thread where 8 do, none coalesced.  Its
+// design now (kernel 5's, warp_grid.cu, carried over to the k-major layout):
+// LANES threads per (n, k, v), each holding VPL cotangent vectors in
+// registers, loaded once, and reading one coalesced vector per corner for
+// each; the voxel's lanes reduce with __shfl_xor_sync and lane 0 stores its
+// three outputs (no atomics).  VPL is 2 of fp32 and 4 of bf16
+// (dgrid_vecs): at the Generator's C = 32 that is 4 lanes of 32 B (fp32) and
+// one lane holding the whole 64 B bf16 voxel.  At MFE's C = 4
+// one lane holds the one vector: the first design's sums, the same bits.  The grid
+// puts k fastest, blockIdx.x = voxel block * K1 + k and blockIdx.y = n, so
+// the K1 grids that read one voxel block's gout rows run together and any
+// volume the 32-bit voxel index holds fits (the first design's order, voxel blocks
+// on x and n * K1 on y, measured with the same kernel: within 2.5% either
+// way, set by set).  A shared-memory tile of each block's gout rows (the
+// mirror of warp_fwd.cu's output tile) lost on MFE's sparse-motion
+// coordinates.
+//
+// The dx kernel runs one thread per (n, k, v), blockIdx.y = n * K1 + k, so
+// coordinate reads coalesce.  It (a) loads its cotangent vectors once
+// (registers, up to 8 vectors) instead of at each corner, and (b) pairs
 // corners across lanes before the global atomic: for each (dz, dy) the upper
 // x corner of lane i is, on smooth maps, the lower x corner of lane i + 1
 // (neighbouring v run along W), so lane i + 1 takes lane i's contribution
@@ -60,12 +79,6 @@
 // scalar 64-bit atomics, the int64 buffer and a conversion pass.  Which lanes
 // pair depends on the coordinates alone, and the int64 sums are exact, so the
 // pairing keeps that mode's bits.
-//
-// The dgrid kernel reads gout k-major: 16 B at 240 B intervals at MFE fp32,
-// once per corner.  Copying each block's gout rows into a shared-memory tile
-// first (the mirror of warp_fwd.cu's output tile) was built and measured: it
-// lost on MFE's sparse-motion coordinates (PERF.md §6), so dgrid keeps this
-// design.
 //
 // Summing a block's corners in a shared-memory box first and flushing each
 // box voxel with one atomic was built and measured (PERF.md §6): sm_90a
@@ -80,59 +93,87 @@ namespace {
 
 using namespace facevae_warp;
 
-template <typename T, int CPT>
+constexpr unsigned kFull = 0xffffffffu;
+
+// LANES threads per (n, k, v), each holding VPL of its cotangent vectors
+// (c = lane * CPT, then every LANES * CPT channels) in registers for the 8
+// corners, and summing their dot products with the corner's vectors; the
+// voxel's lanes then reduce with shuffles.  blockIdx.x = voxel block * K1 +
+// k (the K1 grids of one voxel block run side by side, so the k-major gout
+// rows they read share sectors), blockIdx.y = n.
+template <typename T, int CPT, int LANES, int VPL>
 __global__ void __launch_bounds__(kThreads)
 warp_bwd_dgrid_kernel(const T* __restrict__ x, const float* __restrict__ gx,
                       const float* __restrict__ gy, const float* __restrict__ gz,
                       const T* __restrict__ gout, float* __restrict__ dgx,
                       float* __restrict__ dgy, float* __restrict__ dgz,
                       int D, int H, int W, int C, int K1, int NV) {
-  const int v = blockIdx.x * kThreads + threadIdx.x;
-  if (v >= NV) return;
-  const int nk = blockIdx.y;  // n * K1 + k
-  const int n = nk / K1;
-  const int k = nk - n * K1;
-  const long long ci = (long long)nk * NV + v;
-  const Axis ax = axis(gx[ci]), ay = axis(gy[ci]), az = axis(gz[ci]);
+  constexpr int kStride = LANES * CPT;  // channels between a lane's vectors
+  const int k = blockIdx.x % K1;
+  const long long t = (long long)(blockIdx.x / K1) * kThreads + threadIdx.x;
+  const int lane = threadIdx.x & (LANES - 1);
+  // no early return: the LANES lanes of a voxel reduce with shuffles below
+  const bool live = t < (long long)NV * LANES;
+  const int v = live ? (int)(t / LANES) : 0;
+  const int n = blockIdx.y;
+  const long long ci = ((long long)n * K1 + k) * NV + v;
   const T* xn = x + (long long)n * D * H * W * C;
   const T* go = gout + ((long long)n * NV + v) * K1 * C + (long long)k * C;
 
   float ddx = 0.f, ddy = 0.f, ddz = 0.f;
+  if (live) {
+    const Axis ax = axis(gx[ci]), ay = axis(gy[ci]), az = axis(gz[ci]);
+    for (int c0 = lane * CPT; c0 < C; c0 += VPL * kStride) {
+      // this lane's cotangent vectors, loaded once for the 8 corners
+      Pack<T, CPT> g[VPL];
 #pragma unroll
-  for (int dz = 0; dz < 2; ++dz) {
-    const float zc = az.f + dz;
-    if (!inside(zc, D)) continue;
-    const float wz = dz ? az.t : 1.f - az.t, sz = dz ? 1.f : -1.f;
+      for (int j = 0; j < VPL; ++j)
+        if (VPL == 1 || c0 + j * kStride < C)
+          g[j] = *reinterpret_cast<const Pack<T, CPT>*>(go + c0 + j * kStride);
 #pragma unroll
-    for (int dy = 0; dy < 2; ++dy) {
-      const float yc = ay.f + dy;
-      if (!inside(yc, H)) continue;
-      const float wy = dy ? ay.t : 1.f - ay.t, sy = dy ? 1.f : -1.f;
+      for (int dz = 0; dz < 2; ++dz) {
+        const float zc = az.f + dz;
+        if (!inside(zc, D)) continue;
+        const float wz = dz ? az.t : 1.f - az.t, sz = dz ? 1.f : -1.f;
 #pragma unroll
-      for (int dx = 0; dx < 2; ++dx) {
-        const float xc = ax.f + dx;
-        if (!inside(xc, W)) continue;
-        const float wx = dx ? ax.t : 1.f - ax.t, sx = dx ? 1.f : -1.f;
-        const T* xj = xn + (((long long)(int)zc * H + (int)yc) * W + (int)xc) * C;
-        float dot = 0.f;
-        for (int c = 0; c < C; c += CPT) {
-          const Pack<T, CPT> p = *reinterpret_cast<const Pack<T, CPT>*>(xj + c);
-          const Pack<T, CPT> g = *reinterpret_cast<const Pack<T, CPT>*>(go + c);
+        for (int dy = 0; dy < 2; ++dy) {
+          const float yc = ay.f + dy;
+          if (!inside(yc, H)) continue;
+          const float wy = dy ? ay.t : 1.f - ay.t, sy = dy ? 1.f : -1.f;
 #pragma unroll
-          for (int i = 0; i < CPT; ++i) dot += to_float(g.v[i]) * to_float(p.v[i]);
+          for (int dx = 0; dx < 2; ++dx) {
+            const float xc = ax.f + dx;
+            if (!inside(xc, W)) continue;
+            const float wx = dx ? ax.t : 1.f - ax.t, sx = dx ? 1.f : -1.f;
+            const T* xj = xn + (((long long)(int)zc * H + (int)yc) * W + (int)xc) * C + c0;
+            float dot = 0.f;
+#pragma unroll
+            for (int j = 0; j < VPL; ++j) {
+              if (VPL > 1 && c0 + j * kStride >= C) break;
+              const Pack<T, CPT> p = *reinterpret_cast<const Pack<T, CPT>*>(xj + j * kStride);
+#pragma unroll
+              for (int i = 0; i < CPT; ++i) dot += to_float(g[j].v[i]) * to_float(p.v[i]);
+            }
+            ddx += sx * wy * wz * dot;
+            ddy += wx * sy * wz * dot;
+            ddz += wx * wy * sz * dot;
+          }
         }
-        ddx += sx * wy * wz * dot;
-        ddy += wx * sy * wz * dot;
-        ddz += wx * wy * sz * dot;
       }
     }
   }
-  dgx[ci] = ddx;
-  dgy[ci] = ddy;
-  dgz[ci] = ddz;
+#pragma unroll
+  for (int o = LANES / 2; o > 0; o /= 2) {
+    ddx += __shfl_xor_sync(kFull, ddx, o);
+    ddy += __shfl_xor_sync(kFull, ddy, o);
+    ddz += __shfl_xor_sync(kFull, ddz, o);
+  }
+  if (live && lane == 0) {
+    dgx[ci] = ddx;
+    dgy[ci] = ddy;
+    dgz[ci] = ddz;
+  }
 }
-
-constexpr unsigned kFull = 0xffffffffu;
 
 // VECS: the cotangent vectors a thread holds in registers (a power of two
 // >= C / CPT), or 0 where C is too wide: then each (dz, dy) re-reads them.
@@ -228,13 +269,53 @@ dim3 grid_of(int N, int K1, int NV) {
   return dim3((unsigned)((NV + kThreads - 1) / kThreads), (unsigned)(N * K1));
 }
 
+// The cotangent vectors a dgrid lane holds where a voxel has more than one:
+// 2 of fp32 (at C = 32, 4 lanes a voxel), 4 of bf16 (at C = 32, the whole
+// voxel in one lane).  Of 1, 2, 4 and 8 at the Generator's C = 32 these were
+// the fastest at its call in the training step (bf16) and on every set
+// (fp32); 2 of bf16 was 2% faster on the noisy set and 11% slower on the
+// smooth one (PERF.md §6).
+template <typename T>
+constexpr int dgrid_vecs() {
+  return sizeof(T) == 4 ? 2 : 4;
+}
+
+// The dgrid kernel's lanes per (n, k, v): the power of two >= C / CPT /
+// vecs (at least 1, at most 32); fast_warp.py:_dgrid_lanes mirrors it for
+// its limit check.
+int dgrid_lanes(int C, int cpt, int vecs) {
+  const int per_lane = (C / cpt + vecs - 1) / vecs;
+  int lanes = 1;
+  while (lanes < per_lane && lanes < 32) lanes *= 2;
+  return lanes;
+}
+
 template <typename T, int CPT>
 void launch_dgrid(const void* x, const float* gx, const float* gy, const float* gz,
                   const void* gout, float* dgx, float* dgy, float* dgz, int N, int D,
                   int H, int W, int C, int K1, int NV, cudaStream_t s) {
-  warp_bwd_dgrid_kernel<T, CPT><<<grid_of(N, K1, NV), kThreads, 0, s>>>(
-      static_cast<const T*>(x), gx, gy, gz, static_cast<const T*>(gout), dgx, dgy, dgz,
-      D, H, W, C, K1, NV);
+  constexpr int kVecs = dgrid_vecs<T>();
+  const int lanes = dgrid_lanes(C, CPT, kVecs);
+  const long long vblocks = ((long long)NV * lanes + kThreads - 1) / kThreads;
+  const dim3 grid((unsigned)(vblocks * K1), (unsigned)N);
+  const T* xs = static_cast<const T*>(x);
+  const T* go = static_cast<const T*>(gout);
+#define FACEVAE_DGRID(L, V)                                                              \
+  warp_bwd_dgrid_kernel<T, CPT, L, V><<<grid, kThreads, 0, s>>>(xs, gx, gy, gz, go, dgx, \
+                                                                dgy, dgz, D, H, W, C, K1, NV)
+  if (C <= CPT) {  // one vector a voxel
+    FACEVAE_DGRID(1, 1);
+    return;
+  }
+  switch (lanes) {
+    case 1: FACEVAE_DGRID(1, kVecs); break;
+    case 2: FACEVAE_DGRID(2, kVecs); break;
+    case 4: FACEVAE_DGRID(4, kVecs); break;
+    case 8: FACEVAE_DGRID(8, kVecs); break;
+    case 16: FACEVAE_DGRID(16, kVecs); break;
+    default: FACEVAE_DGRID(32, kVecs);
+  }
+#undef FACEVAE_DGRID
 }
 
 // The cotangent vectors a thread holds: the power of two >= C / CPT, or 0

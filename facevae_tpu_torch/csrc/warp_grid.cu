@@ -55,12 +55,30 @@
 // design, a thread per (g, v) reading every vector of gout again at each of
 // the 8 corners (64 loads where 8 do at the fp32 Generator, none coalesced
 // across the warp), was slower than F.grid_sample's backward (PERF.md §6).
+// The dx kernel is bound by its atomics, not its bytes: 8 corners x C / CPT
+// vector atomics per (g, v), 33.5M float4 ones at the fp32 Generator call
+// against a 67 MB byte bound of 42 us.  It pairs corners across lanes before
+// the atomic, as warp_bwd.cu's dx kernel does: lane l holds voxel v's
+// channel vector cv and lane l - cvs (cvs = C / CPT) the same vector of
+// voxel v - 1, so for each (dz, dy) lane l takes lane l - cvs's upper x
+// corner by a shuffle where it is its own lower one, adds it to its own, and
+// the giver skips that atomic.  No lane returns early: a lane past the last
+// voxel takes part with a NaN coordinate, whose corners all lie outside.  At
+// the fp32 Generator's own grid in a training step 29% of the atomics pair
+// (a warp holds 4 voxels there, so at most 3 of 4 upper corners can), and
+// the kernel takes 18% less time than without the pairing; at the
+// reference form (cvs = 1) 17% less (PERF.md §6).  Walking runs of 8
+// voxels along W per thread, the upper corner carried in registers into the
+// next voxel's lower one (7 of 8 can pair), was built and measured: 1-2%
+// slower at the Generator's step, 28% slower at the reference form.
 // The dx kernel adds through a sink (warp_common.cuh): by default float4 /
 // float2 atomics where the vector allows it, so the order of its sums, and
 // the last bits of dx, vary from run to run; in deterministic mode
 // (fast_warp.py, when torch.are_deterministic_algorithms_enabled()) a
 // fixed-point int64 sum whose bits do not depend on the order, at the cost of
-// scalar 64-bit atomics, the int64 buffer and a conversion pass.
+// scalar 64-bit atomics, the int64 buffer and a conversion pass.  The
+// contributions are made into int64 before the shuffle, so the pairing keeps
+// that mode's bits.
 #include "warp_common.cuh"
 
 namespace {
@@ -191,6 +209,8 @@ grid_dgrid_kernel(const T* __restrict__ x, const float* __restrict__ grid,
   }
 }
 
+// A thread per (g, v, channel vector cv); lane l holds voxel v's vector cv
+// and lane l - cvs the same vector of voxel v - 1 (cvs = C / CPT).
 template <typename T, int CPT, class Sink>
 __global__ void __launch_bounds__(kThreads)
 grid_dx_kernel(const float* __restrict__ grid, const T* __restrict__ gout, Sink sink, int D,
@@ -198,41 +218,61 @@ grid_dx_kernel(const float* __restrict__ grid, const T* __restrict__ gout, Sink 
   sink.prepare();
   const int cvs = C / CPT;
   const long long t = (long long)blockIdx.x * kThreads + threadIdx.x;
-  if (t >= (long long)NV * cvs) return;
-  const int v = (int)(t / cvs);
-  const int cv = (int)(t - (long long)v * cvs);
+  const int lane = threadIdx.x & 31;
+  // no early return: the lanes of a warp exchange corners below; a lane past
+  // the last voxel takes part with a NaN coordinate, whose corners all lie
+  // outside
+  const bool live = t < (long long)NV * cvs;
+  const int v = live ? (int)(t / cvs) : 0;
+  const int cv = live ? (int)(t - (long long)v * cvs) : 0;
   const int g = blockIdx.y;
   const long long gv = (long long)g * NV + v;
   const float* p = grid + gv * 3;
-  const Axis ax = axis(unnormalize(p[0], W)), ay = axis(unnormalize(p[1], H)),
-             az = axis(unnormalize(p[2], D));
+  const float nan = __int_as_float(0x7fc00000);
+  const Axis ax = axis(live ? unnormalize(p[0], W) : nan),
+             ay = axis(live ? unnormalize(p[1], H) : nan),
+             az = axis(live ? unnormalize(p[2], D) : nan);
   const long long dn = (long long)(g / gps) * D * H * W * C + cv * CPT;
-  const Pack<T, CPT> o = *reinterpret_cast<const Pack<T, CPT>*>(gout + gv * C + cv * CPT);
+  Pack<T, CPT> o{};
+  if (live) o = *reinterpret_cast<const Pack<T, CPT>*>(gout + gv * C + cv * CPT);
   float go[CPT];
 #pragma unroll
   for (int i = 0; i < CPT; ++i) go[i] = to_float(o.v[i]);
+  const bool x0in = inside(ax.f, W), x1in = inside(ax.f + 1.f, W);
+  const float wx0 = 1.f - ax.t, wx1 = ax.t;
 
 #pragma unroll
   for (int dz = 0; dz < 2; ++dz) {
     const float zc = az.f + dz;
-    if (!inside(zc, D)) continue;
     const float wz = dz ? az.t : 1.f - az.t;
 #pragma unroll
     for (int dy = 0; dy < 2; ++dy) {
       const float yc = ay.f + dy;
-      if (!inside(yc, H)) continue;
+      const bool row_in = inside(zc, D) && inside(yc, H);
       const float wzy = wz * (dy ? ay.t : 1.f - ay.t);
+      const int row = row_in ? ((int)zc * H + (int)yc) * W : 0;
+      // the voxels of the lower and upper x corners, -1 outside the volume
+      const int lo = row_in && x0in ? row + (int)ax.f : -1;
+      const int hi = row_in && x1in ? row + (int)ax.f + 1 : -1;
+      // along W the upper corner of voxel v - 1 (lane l - cvs, the same
+      // channel vector) is often the lower corner of voxel v, which then adds
+      // both and lane l - cvs skips its atomic; which lanes pair depends on
+      // the coordinates alone (at cvs >= 32 none do)
+      const int prev_hi = __shfl_up_sync(kFull, hi, cvs);
+      const bool take = lane >= cvs && lo >= 0 && prev_hi == lo;
+      const bool given = __shfl_down_sync(kFull, (int)take, cvs) && lane + cvs < 32;
+      const float w0 = wzy * wx0, w1 = wzy * wx1;
+      const long long e0 = dn + (long long)lo * C, e1 = dn + (long long)hi * C;
+      typename Sink::V s0[CPT], s1[CPT];
 #pragma unroll
-      for (int dx = 0; dx < 2; ++dx) {
-        const float xc = ax.f + dx;
-        if (!inside(xc, W)) continue;
-        const float w = wzy * (dx ? ax.t : 1.f - ax.t);
-        const long long e = dn + (((long long)(int)zc * H + (int)yc) * W + (int)xc) * C;
-        typename Sink::V upd[CPT];
-#pragma unroll
-        for (int i = 0; i < CPT; ++i) upd[i] = sink.make(w * go[i], e + i);
-        sink.template add<CPT>(e, upd);
+      for (int i = 0; i < CPT; ++i) {
+        s0[i] = lo >= 0 ? sink.make(w0 * go[i], e0 + i) : 0;
+        s1[i] = hi >= 0 ? sink.make(w1 * go[i], e1 + i) : 0;
+        const typename Sink::V q = __shfl_up_sync(kFull, s1[i], cvs);
+        if (take) s0[i] += q;
       }
+      if (lo >= 0) sink.template add<CPT>(e0, s0);
+      if (hi >= 0 && !given) sink.template add<CPT>(e1, s1);
     }
   }
 }

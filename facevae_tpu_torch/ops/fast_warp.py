@@ -67,6 +67,7 @@ launches = {"warp_fwd": 0, "warp_fwd_plain": 0,
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _MAX_GRID_Y = 65535
+_MAX_GRID_X = 2 ** 31 - 1
 
 
 def reset_launch_counts():
@@ -269,23 +270,52 @@ def _check_x_cuda(name, x):
 
 
 def _check_launch_grid(rows, NV, what):
-    """The kernels put rows (N*K1 or N*gps) on blockIdx.y and index voxels
-    with 32-bit ints."""
+    """The kernels put rows (N, N*K1 or N*gps) on blockIdx.y and index
+    voxels with 32-bit ints."""
     if rows > _MAX_GRID_Y:
         raise ValueError(f"{what}={rows} exceeds the kernel's grid limit {_MAX_GRID_Y}")
     if NV >= 2 ** 31:
         raise ValueError(f"NV={NV} voxels exceeds the kernel's 32-bit voxel index")
 
 
+def _dgrid_lanes(C, cpt, item):
+    """The multi-grid dgrid kernel's threads per (n, k, v): the power of two
+    >= C / cpt / vecs, at least 1, at most 32, where a lane holds vecs = 2
+    cotangent vectors of fp32 (item 4) or 4 of bf16
+    (csrc/warp_bwd.cu:dgrid_lanes, dgrid_vecs)."""
+    per_lane = -(-(C // cpt) // (2 if item == 4 else 4))
+    lanes = 1
+    while lanes < per_lane and lanes < 32:
+        lanes *= 2
+    return lanes
+
+
+def _check_dgrid_launch(N, K1, NV, lanes):
+    """The multi-grid dgrid kernel's grid: (voxel blocks of 256 / lanes
+    voxels) * K1 on blockIdx.x (at most 2^31 - 1), N on blockIdx.y."""
+    _check_launch_grid(N, NV, "N")
+    blocks = -(-NV * lanes // 256) * K1
+    if blocks > _MAX_GRID_X:
+        raise ValueError(f"{blocks} blocks (NV={NV} voxels at {lanes} lanes each, K1={K1}) "
+                         f"exceed the kernel's grid limit {_MAX_GRID_X}")
+
+
+def _check_source_voxels(x):
+    """The dx kernels index the source's voxels with 32-bit ints."""
+    if math.prod(x.shape[1:4]) >= 2 ** 31:
+        raise ValueError(f"a source of {tuple(x.shape[1:4])} voxels exceeds the dx kernel's "
+                         "32-bit voxel index")
+
+
 def _check_cuda(name, x, cgx, cgy, cgz, spatial):
-    """The checks every multi-grid kernel wrapper makes before it launches."""
+    """The checks every multi-grid kernel wrapper makes before it launches;
+    each launch checks its own grid."""
     _check(x, cgx, cgy, cgz, spatial)
     _check_x_cuda(name, x)
     for cname, c in (("cgx", cgx), ("cgy", cgy), ("cgz", cgz)):
         if c.device != x.device or c.dtype != torch.float32 or not c.is_contiguous():
             raise ValueError(f"{cname} must be a contiguous fp32 tensor on {x.device}, "
                              f"got {c.dtype} on {c.device}")
-    _check_launch_grid(cgx.shape[0] * cgx.shape[1], cgx.shape[2], "N*K1")
 
 
 def _check_grid_cuda(name, x, grid, gps):
@@ -355,6 +385,7 @@ def warp_multi_pixel_cuda(x, cgx, cgy, cgz, spatial):
     _check_cuda("warp_fwd", x, cgx, cgy, cgz, spatial)
     N, D, H, W, C = x.shape
     K1, NV = cgx.shape[1], cgx.shape[2]
+    _check_launch_grid(N * K1, NV, "N*K1")
     out = torch.empty((N, NV, K1 * C), dtype=x.dtype, device=x.device)
     if out.numel() == 0:
         return out.reshape(N, *spatial, K1 * C)
@@ -378,13 +409,18 @@ def warp_multi_pixel_bwd_cuda(x, cgx, cgy, cgz, gout, spatial, need_dx=True,
     K1, NV = cgx.shape[1], cgx.shape[2]
     _check_gout(gout, (N, *spatial, K1 * C), x)
     gout = gout.to(x.dtype).contiguous()
+    cpt = _cpt(C, x.element_size(), x, gout)
+    if need_dgrid:
+        _check_dgrid_launch(N, K1, NV, _dgrid_lanes(C, cpt, x.element_size()))
+    if need_dx:
+        _check_launch_grid(N * K1, NV, "N*K1")
+        _check_source_voxels(x)
     dtype, stream = _DTYPE_CODES[x.dtype], _stream(x)
     dx = dgrid = None
     with torch.cuda.device(x.device):
         if need_dgrid:
             dgrid = tuple(torch.empty_like(cgx) for _ in range(3))
             if cgx.numel():
-                cpt = _cpt(C, x.element_size(), x, gout)
                 _launch("warp_bwd_dgrid", x.data_ptr(), cgx.data_ptr(), cgy.data_ptr(),
                         cgz.data_ptr(), gout.data_ptr(), *(d.data_ptr() for d in dgrid),
                         N, D, H, W, C, K1, NV, dtype, cpt, stream)
@@ -431,6 +467,8 @@ def grid_sample_3d_bwd_cuda(x, grid, gout, grids_per_source=1, need_dx=True,
     D, H, W, C = x.shape[1:]
     G, NV = grid.shape[0], math.prod(grid.shape[1:4])
     _check_gout(gout, (*grid.shape[:4], C), x)
+    if need_dx:
+        _check_source_voxels(x)
     gout = gout.to(x.dtype).contiguous()
     dtype, stream = _DTYPE_CODES[x.dtype], _stream(x)
     dx = dgrid = None

@@ -318,7 +318,7 @@ def _site(site, cset, dtype, seed):
 
 
 SITE_CASES = [("MFE", "sparse"), ("MFE", "sparse+probes"), ("MFE", "noisy"),
-              ("Generator", "noisy")]
+              ("Generator", "noisy"), ("Generator", "sparse"), ("Generator", "sparse+probes")]
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -337,6 +337,121 @@ def test_kernels_1_and_3_match_plain_at_call_sites(site, cset, dtype):
     assert_close(dx.float(), rdx.float(), tol, "dx")
     assert out.dtype == dtype and torch.isfinite(out).all()
     assert_close(out.float(), ref.float(), tol, "forward")
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("cset", ["sparse", "sparse+probes"])
+def test_kernels_2_and_6_match_plain_on_the_generator_sets(cset, dtype):
+    """At the Generator's shape (batch cut to 2) on one keypoint's smooth
+    motion, clean and with the probes, where the dx kernels' lanes pair:
+    kernel 2 (4 lanes of 2 vectors a voxel fp32, 1 of 4 bf16) and kernel 6
+    (lane distance C / CPT = 8 fp32, 4 bf16) against their plain versions, with
+    kernels 4 and 5 on the same normalized grid: dgrid 1e-5 of max|ref| in
+    both dtypes, forward and dx 1e-5 fp32, 1e-2 bf16."""
+    from facevae_tpu_torch.warp_inputs import normalized
+    x, coords, gout, spatial = _site("Generator", cset, dtype, 21)
+    tol = 1e-5 if dtype == torch.float32 else 1e-2
+    fast_warp.reset_launch_counts()
+    dgrid = fast_warp.warp_multi_pixel_bwd_cuda(x, *coords, gout, spatial, need_dx=False)[1]
+    rdgrid = fast_warp.warp_multi_pixel_bwd_plain(x, *coords, gout, spatial, need_dx=False)[1]
+    grid = normalized(coords, *spatial)
+    out = fast_warp.grid_sample_3d_cuda(x, grid, 1)
+    gdx, gdgrid = fast_warp.grid_sample_3d_bwd_cuda(x, grid, gout, 1)
+    ref = fast_warp.grid_sample_3d_plain(x, grid, 1)
+    rgdx, rgdgrid = fast_warp.grid_sample_3d_bwd_plain(x, grid, gout, 1)
+    torch.cuda.synchronize()
+    assert (fast_warp.launches["warp_bwd_dgrid"], fast_warp.launches["grid_bwd_dx"]) == (1, 1)
+    for a, (d, r) in enumerate(zip(dgrid, rdgrid)):
+        assert torch.isfinite(d).all()
+        assert_close(d, r, 1e-5, f"kernel 2 {cset} {'xyz'[a]}")
+    for what, a, r, rel in (("kernel 4", out, ref, tol), ("kernel 6", gdx, rgdx, tol),
+                            ("kernel 5", gdgrid, rgdgrid, 1e-5)):
+        assert a.shape == r.shape and torch.isfinite(a).all(), what
+        assert_close(a.float(), r.float(), rel, f"{what} {cset} {dtype}")
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("cset", ["sparse", "sparse+probes"])
+def test_grid_dx_deterministic_matches_the_emulation_on_the_generator_sets(cset, dtype):
+    """Kernel 6's deterministic variant pairs lanes at distance C / CPT (8
+    fp32, 4 bf16) before its int64 atomics: the bits of the unpaired
+    fixed-point emulation (and of the paired one, tests/torch_parity.py),
+    twice, at the Generator's shape (batch cut to 2)."""
+    from facevae_tpu_torch.warp_inputs import normalized
+    from torch_parity import fixed_point_dx, paired_dx
+    x, coords, gout, spatial = _site("Generator", cset, dtype, 22)
+    grid = normalized(coords, *spatial)
+    with _deterministic():
+        runs = [fast_warp.grid_sample_3d_bwd_cuda(x, grid, gout, 1, need_dgrid=False)[0]
+                for _ in range(2)]
+    torch.cuda.synchronize()
+    N, C = x.shape[0], x.shape[-1]
+    pix = [c.contiguous() for c in fast_warp._grid_pixels(x.cpu(), grid.cpu(), 1)]
+    s = int(fast_warp.dx_scale_exponent(gout, x[0, ..., 0].numel()))
+    rows = gout.cpu().float().reshape(N, -1, C)
+    emulated = fixed_point_dx(tuple(x.shape), pix, rows, s)
+    assert torch.equal(paired_dx(tuple(x.shape), pix, rows, C // (16 // x.element_size()), s),
+                       emulated)
+    assert torch.equal(runs[0], runs[1])
+    assert torch.equal(runs[0].cpu(), emulated.to(dtype))
+
+
+def test_dgrid_kernel_past_65535_voxel_blocks():
+    """Kernel 2's grid puts voxel block * K1 + k on blockIdx.x: 65537 voxel
+    blocks of 256 voxels (C = 4 fp32: one lane a voxel) at K1 = 2 run, and
+    match the plain version at 1e-5 of max|ref|; N = 65536 sources are
+    refused before any launch (blockIdx.y holds 65535)."""
+    N, K1, spatial, C = 1, 2, (1, 257, 65537), 4
+    g = torch.Generator(device="cuda").manual_seed(23)
+    NV = spatial[1] * spatial[2]
+    assert -(-NV // 256) > 65535
+    x = torch.randn(N, *spatial, C, generator=g, device="cuda")
+    size = torch.tensor([spatial[2], spatial[1], 1], device="cuda").reshape(3, 1, 1, 1)
+    c = torch.rand(3, N, K1, NV, generator=g, device="cuda") * (size + 2) - 1
+    coords = [c[a].contiguous() for a in range(3)]
+    gout = torch.randn(N, *spatial, K1 * C, generator=g, device="cuda")
+    fast_warp.reset_launch_counts()
+    dgrid = fast_warp.warp_multi_pixel_bwd_cuda(x, *coords, gout, spatial, need_dx=False)[1]
+    rdgrid = fast_warp.warp_multi_pixel_bwd_plain(x, *coords, gout, spatial, need_dx=False)[1]
+    torch.cuda.synchronize()
+    assert fast_warp.launches["warp_bwd_dgrid"] == 1
+    for a, (d, r) in enumerate(zip(dgrid, rdgrid)):
+        assert_close(d, r, 1e-5, f"dgrid {'xyz'[a]}")
+    del x, coords, gout, dgrid, rdgrid, c
+    xs = torch.zeros(65536, 1, 1, 1, 4, device="cuda")
+    cs = [torch.zeros(65536, 1, 1, device="cuda") for _ in range(3)]
+    with pytest.raises(ValueError, match="N=65536"):
+        fast_warp.warp_multi_pixel_bwd_cuda(xs, *cs, torch.zeros_like(xs), (1, 1, 1),
+                                            need_dx=False)
+    assert fast_warp.launches["warp_bwd_dgrid"] == 1
+    dgrid = fast_warp.warp_multi_pixel_bwd_cuda(xs[:65535], *(c[:65535] for c in cs),
+                                                xs[:65535], (1, 1, 1), need_dx=False)[1]
+    torch.cuda.synchronize()
+    assert all(torch.equal(d, torch.zeros_like(d)) for d in dgrid)
+
+
+def test_pairing_share_at_the_generator_sets():
+    """The share of kernel 6's float4 atomics the pairing saves at the fp32
+    Generator call (lane distance 8), counted by the CPU model
+    (tests/torch_parity.py:pairing_counts) on the sets the kernel is timed
+    on: the Generator's own grid in the first full-width training step
+    (bench_warp.generator_step_inputs), one keypoint's sparse motion, the
+    noisy set.  Printed (``-s``); at most 3 of each 4 upper corners pair."""
+    from facevae_tpu_torch import bench_warp
+    from facevae_tpu_torch.warp_inputs import noisy_coords, sparse_motion_coords
+    from torch_parity import pairing_counts
+    spatial = (16, 64, 64)
+    g = torch.Generator(device="cuda").manual_seed(0)
+    x, grid = bench_warp.generator_step_inputs("float32")
+    sets = {"step": fast_warp._grid_pixels(x, grid, 1),
+            "sparse": sparse_motion_coords(8, 1, *spatial, g),
+            "noisy": noisy_coords(8, 1, *spatial, g)}
+    for name, coords in sets.items():
+        issued, unpaired = pairing_counts([c.cpu() for c in coords], spatial, 8)
+        saved = 1 - issued / unpaired
+        print(f"[pairing] Generator {name}, lane distance 8: {unpaired} float4 atomics "
+              f"unpaired, {issued} paired, {saved:.4f} saved")
+        assert 0 <= saved <= 0.375
 
 
 @pytest.mark.parametrize("deterministic", [False, True])
