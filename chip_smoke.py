@@ -94,7 +94,9 @@ Phases, each fatal on failure (exit code 1, no result line):
               version and library call (10 calls captured in one CUDA
               graph, the median CUDA-event time of 20 replays over 10: the
               host's Python would otherwise outlast these kernels), and
-              the bounds.
+              the bounds; F.grid_sample also on the probes' own layouts
+              (probe 7: volT's permuted view; probe 8: its fp32 source made
+              from rows3 inside the timed call).
 Then a JSON line of kernel results, the card's name and power limit, and the
 last line {"ok": true, "device": {...}}.  There is no CPU fallback: without
 a CUDA device the script fails.
@@ -831,7 +833,9 @@ def phase_probes():
                      f"P={gx.shape[1]}")
     rows = [row]
     print(f"[probes] probe_warp: {r7['ms']:.4f} ms, plain {row['plain_ms']:.4f} ms, "
-          f"F.grid_sample {r7['library_ms']:.4f} ms, one-hot partner {r7['onehot_ms']:.4f} ms, "
+          f"F.grid_sample {r7['library_ms']:.4f} ms (on a contiguous copy of the table made "
+          f"before the call; {r7['library_view_ms']:.4f} ms on volT's own permuted view), "
+          f"one-hot partner {r7['onehot_ms']:.4f} ms, "
           f"bound {r7['bound_ms'] * 1e3:.3f} us; vs plain max|err| {row['err']:.3e} (max|ref| "
           f"{row['scale']:.3f}); vs the probe's oracle {r7['err']:.4f} on the fp32 volume "
           f"(bf16 table), {r7['err_exact']:.3e} on the bf16 volume")
@@ -852,7 +856,9 @@ def phase_probes():
               f"(ZB={p8.ZB}); kernel 1 {t['kernel1_ms']:.4f} ms on bf16 x, "
               f"{t['kernel1_fp32_ms']:.4f} ms on fp32 x; nothing staged (blockwhen, budget "
               f"1 row) {t['unstaged_ms']:.4f} ms; F.grid_sample "
-              f"{t['library_ms']:.4f} ms; bound {t['bound_ms']:.4f} ms ({t['bound_by']}); "
+              f"{t['library_ms']:.4f} ms (fp32 source per grid made before the call; "
+              f"{t['library_relayout_ms']:.4f} ms with it made from rows3 inside); "
+              f"bound {t['bound_ms']:.4f} ms ({t['bound_by']}); "
               f"plain {plain_ms:.4f} ms")
         check(fit == PROBE_FIT[t["theta"]], f"probe fit rate at theta={t['theta']}: {fit}")
         for mode, m in t["modes"].items():

@@ -5,6 +5,7 @@ two checkouts on one card.
 
     python facevae_tpu_torch/bench_warp.py              # this checkout
     python facevae_tpu_torch/bench_warp.py --root DIR   # the checkout at DIR
+    python facevae_tpu_torch/bench_warp.py --probes [--root DIR]   # kernels 7 and 8
 
 ``--root`` times another checkout's kernels (say a ``git archive`` of the
 parent commit) on the same inputs: they are drawn from a seeded
@@ -39,7 +40,14 @@ dgrid's and dx_det's outputs (equal digests on equal inputs: equal bits),
 under the card's name and power limit, and the device time of
 F.grid_sample's forward and backward on the same samples
 (``library_calls``: the yardstick chip_smoke.py phase 3 prints beside the
-kernels, never called by the port).  Needs a CUDA card.
+kernels, never called by the port).
+
+``--probes`` times the two probe warps instead (``probe_rows``, at the
+probes' own shapes and on their own inputs, drawn with numpy by this
+checkout's probe modules): kernel 8 (probe_banded_warp) in each mode at
+theta = 3 and 40 degrees, and kernel 7 (probe_warp), with digests of the
+inputs, of the outputs and of kernel 8's staged flags, and F.grid_sample's
+time on the same samples.  Needs a CUDA card.
 """
 from __future__ import annotations
 
@@ -73,14 +81,19 @@ CASES = (("MFE", "warp", 4, 15, VOLUME, "noisy", ("float32", "bfloat16"), ALL),
          ("Generator", "grid", 32, 1, VOLUME, "sparse", ("float32", "bfloat16"), ALL))
 
 
-def _inputs_module():
-    """This checkout's warp_inputs.py, loaded by path: under --root the
-    package name points at the other checkout, which may lack it."""
-    path = Path(__file__).resolve().parent / "warp_inputs.py"
-    spec = importlib.util.spec_from_file_location("_bench_warp_inputs", path)
+def _module(relpath):
+    """This checkout's facevae_tpu_torch/<relpath>, loaded by path: under
+    --root the package name points at the other checkout, which may lack
+    it or differ."""
+    path = Path(__file__).resolve().parent / relpath
+    spec = importlib.util.spec_from_file_location("_bench_warp_" + path.stem, path)
     module = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(module)
     return module
+
+
+def _inputs_module():
+    return _module("warp_inputs.py")
 
 
 def record_first_call(cfg, module, name, device="cuda", batch=N_BATCH):
@@ -290,10 +303,77 @@ def run():
     return rows
 
 
+def probe_rows():
+    """--probes: one dict per kernel 8 (mode, theta) and one for kernel 7:
+    device ms per call of the timed checkout's wrapper, F.grid_sample's
+    (kernel 8: on an fp32 source repeated per grid, made before the timed
+    call, ``library_ms``, and inside it from rows3, ``library_relayout_ms``;
+    kernel 7: on a contiguous copy of the table, ``library_ms``, and on
+    volT's permuted view, ``library_view_ms``), and digests."""
+    import torch
+    import torch.nn.functional as F
+    from facevae_tpu_torch.probes import proto_banded_warp as p8
+    from facevae_tpu_torch.probes import proto_warp as p7
+    from facevae_tpu_torch.probes.common import graph_ms
+    g8, g7 = _module("probes/proto_banded_warp.py"), _module("probes/proto_warp.py")
+
+    def library(src, grid):
+        return lambda: F.grid_sample(src, grid, mode="bilinear", padding_mode="zeros",
+                                     align_corners=True)
+
+    def normalized(coords, sizes):
+        return torch.stack([a * (2.0 / (s - 1)) - 1.0 for a, s in zip(coords, sizes)], -1)
+
+    N, D, H, W, C, K1 = g8.N, g8.D, g8.H, g8.W, g8.C, g8.K1
+    shape = (D, H, W, C)
+    _, rows3_np, coords = g8.inputs()
+    coords(3.0)                    # the probe's numerics draw: the timed grids come next
+    rows3 = torch.from_numpy(rows3_np).bfloat16().cuda()
+
+    def per_grid():
+        return (g8.rows3_to_x(rows3, shape).float().permute(0, 4, 1, 2, 3)[:, None]
+                .expand(N, K1, C, D, H, W).reshape(N * K1, C, D, H, W).contiguous())
+
+    rows = []
+    for theta in g8.THETAS:
+        cg = [torch.from_numpy(a).cuda() for a in coords(theta)]
+        grid = normalized(cg, (W, H, D)).reshape(N * K1, D, H, W, 3)
+        src = per_grid()
+        lib = dict(library_ms=graph_ms(library(src, grid)),
+                   library_relayout_ms=graph_ms(lambda: library(per_grid(), grid)()))
+        del src
+        for mode in g8.MODES:
+            staged = torch.zeros(N, cg[0].shape[2] // g8.VB, K1, dtype=torch.uint8,
+                                 device="cuda")
+            out = p8.banded_warp_cuda(rows3, *cg, shape, mode, g8.VB, g8.BUDGET, staged)
+            rows.append(dict(kernel="probe_banded_warp", theta=theta, mode=mode,
+                             ms=graph_ms(lambda: p8.banded_warp_cuda(rows3, *cg, shape, mode,
+                                                                     g8.VB, g8.BUDGET)),
+                             **lib, staged=staged.float().mean().item(),
+                             in_digest=digest(rows3, *cg), digest=digest(out),
+                             staged_digest=digest(staged)))
+        del cg, grid
+    _, _, volT_np, *c7 = g7.inputs()
+    shape = (g7.D, g7.H, g7.W, g7.C)
+    volT = torch.from_numpy(volT_np).cuda()
+    g = [torch.from_numpy(a).reshape(1, -1).cuda() for a in c7]
+    view = volT.reshape(g7.C, g7.W, g7.D, g7.H).permute(0, 2, 3, 1)[None]
+    grid = normalized([a[0] for a in g], (g7.W, g7.H, g7.D)).reshape(1, 1, 1, -1, 3)
+    rows.append(dict(kernel="probe_warp", P=g[0].shape[1],
+                     ms=graph_ms(lambda: p7.proto_warp_cuda(volT, *g, shape)),
+                     library_ms=graph_ms(library(view.contiguous(), grid)),
+                     library_view_ms=graph_ms(library(view, grid)),
+                     in_digest=digest(volT, *g),
+                     digest=digest(p7.proto_warp_cuda(volT, *g, shape))))
+    return rows
+
+
 def main(argv=None):
     p = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     p.add_argument("--root", default=str(Path(__file__).resolve().parents[1]),
                    help="the checkout whose facevae_tpu_torch is timed (default: this one)")
+    p.add_argument("--probes", action="store_true",
+                   help="time the probe warps (kernels 7 and 8) instead of kernels 1-6")
     args = p.parse_args(argv)
     sys.path.insert(0, str(Path(args.root).resolve()))
     import torch
@@ -301,7 +381,7 @@ def main(argv=None):
     if not torch.cuda.is_available():
         raise SystemExit("bench_warp times the CUDA kernels: no CUDA device")
     card = smi()
-    for row in run():
+    for row in (probe_rows() if args.probes else run()):
         print(json.dumps({"root": str(Path(facevae_tpu_torch.__file__).parents[1]),
                           "card": card, **row}), flush=True)
 

@@ -1,6 +1,6 @@
 // Device helpers shared by the trilinear-warp kernels (warp_fwd.cu,
-// warp_bwd.cu, warp_grid.cu).  kernels.py hashes this header with each
-// source, so an edit here rebuilds every library that includes it.
+// warp_bwd.cu, warp_grid.cu, probe_warp.cu).  kernels.py hashes this header
+// with each source, so an edit here rebuilds every library that includes it.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -117,6 +117,72 @@ inline int launch_fixed_to_float(const void* acc, const void* flags, const int* 
       static_cast<const long long*>(acc), static_cast<const unsigned int*>(flags), scale_exp,
       out, n);
   return (int)cudaGetLastError();
+}
+
+// Writing a block's output tile out of shared memory in whole sectors (the
+// multi-grid forward's tile kernel, warp_fwd.cu, and the banded probe,
+// probe_warp.cu).
+template <int U>
+struct Unit;
+template <>
+struct Unit<16> {
+  using type = uint4;
+};
+template <>
+struct Unit<8> {
+  using type = uint2;
+};
+template <>
+struct Unit<4> {
+  using type = unsigned;
+};
+template <>
+struct Unit<2> {
+  using type = unsigned short;
+};
+
+// dst[0 : rows*rowbytes] <- rows of rowbytes bytes, `stride` apart in the
+// tile, copied in units of U bytes (U divides rowbytes and stride) by the
+// block's NT threads
+template <int U, int NT = kThreads>
+__device__ __forceinline__ void copy_out(const unsigned char* __restrict__ tile, int stride,
+                                         unsigned char* __restrict__ dst, int rowbytes, int rows) {
+  using V = typename Unit<U>::type;
+  const int per_row = rowbytes / U;
+  const int total = rows * per_row;
+  for (int j = threadIdx.x; j < total; j += NT) {
+    const int r = j / per_row;
+    reinterpret_cast<V*>(dst)[j] =
+        *reinterpret_cast<const V*>(tile + r * stride + (j - r * per_row) * U);
+  }
+}
+
+// copy_out with the unit chosen at run time
+template <int NT = kThreads>
+__device__ __forceinline__ void copy_out(int unit, const unsigned char* tile, int stride,
+                                         unsigned char* dst, int rowbytes, int rows) {
+  switch (unit) {
+    case 16: copy_out<16, NT>(tile, stride, dst, rowbytes, rows); break;
+    case 8: copy_out<8, NT>(tile, stride, dst, rowbytes, rows); break;
+    case 4: copy_out<4, NT>(tile, stride, dst, rowbytes, rows); break;
+    default: copy_out<2, NT>(tile, stride, dst, rowbytes, rows); break;
+  }
+}
+
+// the widest unit (16, 8, 4, 2 bytes) that divides both
+__host__ __device__ inline int copy_unit(long long a, long long b) {
+  for (int u = 16; u > 2; u /= 2)
+    if (a % u == 0 && b % u == 0) return u;
+  return 2;
+}
+
+// The tile's row stride in bytes: the row rounded up to whole store vectors,
+// plus one vector where that count is even (an odd count of vectors between
+// rows puts a phase's stores on distinct banks).
+inline int tile_stride(int rowbytes, int vec) {
+  int units = (rowbytes + vec - 1) / vec;
+  if (units % 2 == 0) ++units;
+  return units * vec;
 }
 
 struct Axis {

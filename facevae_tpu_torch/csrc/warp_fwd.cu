@@ -163,58 +163,6 @@ __device__ __forceinline__ void for_corners(float px, float py, float pz, int D,
   }
 }
 
-template <int U>
-struct Unit;
-template <>
-struct Unit<16> {
-  using type = uint4;
-};
-template <>
-struct Unit<8> {
-  using type = uint2;
-};
-template <>
-struct Unit<4> {
-  using type = unsigned;
-};
-template <>
-struct Unit<2> {
-  using type = unsigned short;
-};
-
-// dst[0 : rows*rowbytes] <- rows of rowbytes bytes, `stride` apart in the
-// tile, copied in units of U bytes (U divides rowbytes and stride)
-template <int U>
-__device__ __forceinline__ void copy_out(const unsigned char* __restrict__ tile, int stride,
-                                         unsigned char* __restrict__ dst, int rowbytes, int rows) {
-  using V = typename Unit<U>::type;
-  const int per_row = rowbytes / U;
-  const int total = rows * per_row;
-  for (int j = threadIdx.x; j < total; j += kThreads) {
-    const int r = j / per_row;
-    reinterpret_cast<V*>(dst)[j] =
-        *reinterpret_cast<const V*>(tile + r * stride + (j - r * per_row) * U);
-  }
-}
-
-// copy_out with the unit chosen at run time
-__device__ __forceinline__ void copy_out(int unit, const unsigned char* tile, int stride,
-                                         unsigned char* dst, int rowbytes, int rows) {
-  switch (unit) {
-    case 16: copy_out<16>(tile, stride, dst, rowbytes, rows); break;
-    case 8: copy_out<8>(tile, stride, dst, rowbytes, rows); break;
-    case 4: copy_out<4>(tile, stride, dst, rowbytes, rows); break;
-    default: copy_out<2>(tile, stride, dst, rowbytes, rows); break;
-  }
-}
-
-// the widest unit (16, 8, 4, 2 bytes) that divides both
-__host__ __device__ inline int copy_unit(long long a, long long b) {
-  for (int u = 16; u > 2; u /= 2)
-    if (a % u == 0 && b % u == 0) return u;
-  return 2;
-}
-
 // the most channels the pixel kernel sums in registers
 constexpr int kPixelChannels = 8;
 
@@ -294,15 +242,6 @@ warp_fwd_tile_kernel(const T* __restrict__ x, const float* __restrict__ gx,
   copy_out(unit, tile, stride,
            reinterpret_cast<unsigned char*>(out + (long long)(n * (long long)NV + v0) * K1 * C),
            rowbytes, vt);
-}
-
-// The tile's row stride in bytes: the row rounded up to whole store vectors,
-// plus one vector where that count is even (an odd count of vectors between
-// rows puts a phase's stores on distinct banks).
-int tile_stride(int rowbytes, int vec) {
-  int units = (rowbytes + vec - 1) / vec;
-  if (units % 2 == 0) ++units;
-  return units * vec;
 }
 
 // output voxels per block: 64 (15 KB of tile at MFE fp32, so several blocks

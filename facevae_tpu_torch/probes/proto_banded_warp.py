@@ -44,7 +44,9 @@ K1, VB, ZB = 15, 512, 8
 BUDGET = 160            # staged rows of C*W bf16 a block may hold: 80 KB at C*W = 256
 MODES = ("banded", "blockwhen", "bandonly")
 THETAS = (3.0, 40.0)
-MAX_SHARED = 232448 - 256   # a block's shared memory on an H100, less the kernel's own
+MAX_SHARED = 232448     # the dynamic shared memory a block may ask for on an H100
+WARPS = 16              # the kernel's 512 threads
+SPAN_BYTES = 24         # the kernel's struct Span
 launches = {"probe_banded_warp": 0, "probe_banded_warp_plain": 0}
 
 
@@ -120,9 +122,15 @@ def probe_fit_rate(cgz, d, vb, zb):
 def staged_flags(cgy, cgz, d, h, vb, budget, mode):
     """Where csrc/probe_warp.cu stages (its ``staged`` output), on the host:
     bool [N, NV/vb, K1], true where the (z, y) box of the block's samples
-    (per k, or the union over k for blockwhen) fits ``budget`` rows.  A
-    sample adds its corner rows clipped to the volume, none if it has no z
-    or no y corner inside."""
+    (per k, or the union over k for blockwhen) fits ``budget`` rows."""
+    return box_rows(cgy, cgz, d, h, vb, mode) <= budget
+
+
+def box_rows(cgy, cgz, d, h, vb, mode):
+    """The rows of each box the kernel finds, int [N, NV/vb, K1]: the (z, y)
+    bounding box of a block's samples (per k, or the union over k for
+    blockwhen).  A sample adds its corner rows clipped to the volume, none
+    if it has no z or no y corner inside; a box with none has 0 rows."""
     fz, fy = np.floor(np.asarray(cgz)), np.floor(np.asarray(cgy))
     n, k1, nv = fz.shape
     ok = (fz >= -1) & (fz <= d - 1) & (fy >= -1) & (fy <= h - 1)
@@ -136,14 +144,47 @@ def staged_flags(cgy, cgz, d, h, vb, budget, mode):
     nz = reduce(np.minimum(fz + 1, d - 1), -1, np.max) - reduce(np.maximum(fz, 0), d, np.min)
     ny = reduce(np.minimum(fy + 1, h - 1), -1, np.max) - reduce(np.maximum(fy, 0), h, np.min)
     rows = np.maximum(nz + 1, 0) * np.maximum(ny + 1, 0)
-    fits = np.broadcast_to(rows <= budget, (n, k1, nv // vb, 1))[..., 0]
-    return np.ascontiguousarray(fits.transpose(0, 2, 1))
+    rows = np.broadcast_to(rows, (n, k1, nv // vb, 1))[..., 0]
+    return np.ascontiguousarray(rows.transpose(0, 2, 1))
 
 
 def rows3_to_x(rows3, shape):
     """rows3 [N, D*H, C*W] (column c*W + x) -> x [N,D,H,W,C], contiguous."""
     d, h, w, c = shape
     return rows3.reshape(rows3.shape[0], d, h, c, w).permute(0, 1, 2, 4, 3).contiguous()
+
+
+def tile_stride(rowbytes, vec):
+    """csrc/warp_common.cuh:tile_stride: the output tile's row stride in
+    bytes, an odd count of store vectors."""
+    units = -(-rowbytes // vec)
+    return (units + (units % 2 == 0)) * vec
+
+
+def launch_plan(shape, k1, vb, budget, mode):
+    """What probe_banded_warp_kernel asks of a block (csrc/probe_warp.cu
+    band_smem, ring_rows and launch_banded): the output tile's row
+    ``stride``, the ring's staged rows (``ring_rows``: as many as MAX_SHARED
+    holds beside the rest, at least the budget) and the dynamic shared
+    memory in bytes (``smem``: 16 for the mbarrier; ``tile``, the [vb][k1*C]
+    fp32 output; ``ring``, ring_rows rows of C*W bf16; ``boxes``, each box's
+    warp partials and span; the tile and the ring each rounded up to 16
+    bytes).  Raises ValueError where the budget's rows do not fit beside
+    the rest."""
+    d, h, w, c = shape
+    stride = tile_stride(k1 * c * 4, c * 4)
+    tile = -(-vb * stride // 16) * 16
+    row = c * w * 2
+    boxes = (1 if mode == "blockwhen" else k1) * (WARPS * 16 + SPAN_BYTES)
+    rows = max(budget, (MAX_SHARED - 16 - tile - boxes - 15) // row)
+    ring = -(-rows * row // 16) * 16
+    plan = dict(stride=stride, ring_rows=rows, tile=tile, ring=ring, boxes=boxes,
+                smem=16 + tile + ring + boxes)
+    if plan["smem"] > MAX_SHARED:
+        raise ValueError(f"VB={vb}, K1={k1}, budget {budget} rows of {c * w} bf16: a block's "
+                         f"shared memory would be {plan['smem']} bytes (output tile {tile}, "
+                         f"ring {ring}, boxes {boxes}), over the {MAX_SHARED} an H100 allows")
+    return plan
 
 
 def _check(rows3, cgx, cgy, cgz, shape, mode, vb, budget):
@@ -181,7 +222,8 @@ def banded_warp_cuda(rows3, cgx, cgy, cgz, shape, mode="banded", vb=VB, budget=B
     """Launch probe_banded_warp_kernel on CUDA tensors: rows3 bf16 [N, D*H,
     C*W], coordinates fp32 [N, K1, NV] with NV % vb == 0, C in {1, 2, 4},
     all contiguous; ``staged`` None or uint8 [N, NV/vb, K1], which receives
-    1 where a box fits the budget.  Raises on anything else."""
+    1 where a box fits the budget; the block's shared memory within
+    MAX_SHARED (launch_plan).  Raises on anything else."""
     _check(rows3, cgx, cgy, cgz, shape, mode, vb, budget)
     if not rows3.is_cuda:
         raise ValueError(f"probe_banded_warp kernel needs CUDA tensors, got {rows3.device}")
@@ -196,9 +238,7 @@ def banded_warp_cuda(rows3, cgx, cgy, cgz, shape, mode="banded", vb=VB, budget=B
                             (n, nv // vb, k1))
     if c not in (1, 2, 4):
         raise ValueError(f"probe_banded_warp kernel takes C in (1, 2, 4), got {c}")
-    if budget * c * w * 2 > MAX_SHARED:
-        raise ValueError(f"budget {budget} rows of {c * w} bf16 exceeds a block's "
-                         f"{MAX_SHARED} bytes of shared memory")
+    launch_plan(shape, k1, vb, budget, mode)
     if n > 65535 or max(rows3.numel(), n * k1 * nv, n * nv * k1 * c) >= 2 ** 62 \
             or max(d * h * c * w, nv) >= 2 ** 31:
         raise ValueError(f"N={n}, NV={nv} exceed the kernel's launch grid or indices")
@@ -236,7 +276,9 @@ def run(dev, modes=MODES, seed=0, runs=20):
     partner (``kernel1_ms``), and on the same values in fp32, which stores
     fp32 as this kernel does (``kernel1_fp32_ms``), this kernel with nothing
     staged (blockwhen at a budget of one row, ``unstaged_ms``),
-    F.grid_sample's (``library_ms``), ``bound_ms`` and ``bound_by``, the
+    F.grid_sample's on an fp32 source repeated per grid, made before the
+    timed call (``library_ms``) and inside it from rows3
+    (``library_relayout_ms``), ``bound_ms`` and ``bound_by``, the
     inputs (``args``) and ``modes`` {mode: ``ms``, ``staged`` (share of
     boxes that fit),
     ``flags_match`` (the card's choice equals staged_flags'), ``vs_kernel1``
@@ -272,26 +314,33 @@ def run(dev, modes=MODES, seed=0, runs=20):
         cg_np = coords(theta)
         cg = [torch.from_numpy(a).to(dev) for a in cg_np]
         kernel1 = fast_warp.warp_multi_pixel(x_f32, *cg, spatial).reshape(N, -1, K1 * C)
-        src = (x_f32.permute(0, 4, 1, 2, 3)[:, None].expand(N, K1, C, D, H, W)
-               .reshape(N * K1, C, D, H, W).contiguous())
+
+        def per_grid(rows):          # F.grid_sample's source: x in fp32, once per grid
+            return (rows3_to_x(rows, shape).float().permute(0, 4, 1, 2, 3)[:, None]
+                    .expand(N, K1, C, D, H, W).reshape(N * K1, C, D, H, W).contiguous())
+
+        src = per_grid(rows3)
         grid = torch.stack([a * (2.0 / (s - 1)) - 1.0 for a, s in zip(cg, (W, H, D))], -1)
         grid = grid.reshape(N * K1, D, H, W, 3)
+
+        def library(source):
+            return F.grid_sample(source, grid, mode="bilinear", padding_mode="zeros",
+                                 align_corners=True)
+
         row = dict(theta=theta, probe_fit=probe_fit_rate(cg_np[2], D, VB, ZB),
                    kernel1_ms=timer(lambda: fast_warp.warp_multi_pixel(x_bf, *cg, spatial), runs),
                    kernel1_fp32_ms=timer(lambda: fast_warp.warp_multi_pixel(x_f32, *cg, spatial),
                                          runs),
-                   library_ms=timer(lambda: F.grid_sample(src, grid, mode="bilinear",
-                                                          padding_mode="zeros",
-                                                          align_corners=True), runs),
-                   # one row never holds a box: every block gathers from L2, and
-                   # no 80 KB tile halves the blocks an SM holds
+                   library_ms=timer(lambda: library(src), runs),
+                   library_relayout_ms=timer(lambda: library(per_grid(rows3)), runs),
+                   # one row never holds a box: every block gathers from L2
                    unstaged_ms=timer(lambda: warp(cg, "blockwhen", budget=1), runs),
                    args=(rows3, *cg, shape), modes={})
         # 8 corners x (C multiply-adds + the weights) per sample
         row["bound_ms"], row["bound_by"] = common.bound_ms(
             rows3.numel() * 2 + 3 * cg[0].numel() * 4 + kernel1.numel() * 4,
             cg[0].numel() * 8 * (2 * C + 12))
-        del src, grid
+        del src
         for mode in modes:
             host = staged_flags(cg_np[1], cg_np[2], D, H, VB, BUDGET, mode)
             staged = (torch.zeros(host.shape, dtype=torch.uint8, device=dev) if cuda else None)
@@ -328,7 +377,9 @@ def main(argv=None):
               f"staged {m['staged']:.2f} (budget {BUDGET} rows)   kernel 1 (bf16) "
               f"{t['kernel1_ms']:.4f} ms   {args.mode} {m['ms']:.4f} ms   speedup "
               f"{t['kernel1_ms'] / m['ms']:4.2f}x ({common.time_label(dev)}); bound "
-              f"{t['bound_ms']:.4f} ms ({t['bound_by']}), F.grid_sample {t['library_ms']:.4f} ms")
+              f"{t['bound_ms']:.4f} ms ({t['bound_by']}), F.grid_sample {t['library_ms']:.4f} ms "
+              f"(fp32 source per grid made before the call; {t['library_relayout_ms']:.4f} ms "
+              f"with it made from rows3 inside)")
         print(f"theta={t['theta']:5.1f}  vs kernel 1 in fp32: {agree}; kernel 1 on fp32 x "
               f"(fp32 stores, as here) {t['kernel1_fp32_ms']:.4f} ms; nothing staged "
               f"(budget 1 row) {t['unstaged_ms']:.4f} ms")

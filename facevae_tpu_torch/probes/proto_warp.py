@@ -6,7 +6,8 @@ tools/proto_pallas_warp.py).
 Samples one volume [D=16, H=64, W=64, C=4], held as the probe's table volT
 [C*W, D*H] fp32 (row c*W + x, column z*H + y; bf16-rounded values), at
 P = 65536 unnormalized coordinates (zeros padding) -> [P, C] fp32.  On the
-card the sampler is csrc/probe_warp.cu (probe_warp_kernel).  It prints, as
+card csrc/probe_warp.cu re-lays the table channel-last (probe_relayout_kernel)
+and samples that (probe_warp_kernel), both inside the call.  It prints, as
 the TPU probe does, the error against the probe's oracle (a numpy trilinear
 sample of the fp32 volume, so the bf16 table costs ~1e-2), the same against
 the bf16-rounded volume (the exact answer), and the one-hot-matmul
@@ -28,6 +29,8 @@ from facevae_tpu_torch.probes import common
 
 D, H, W, C = 16, 64, 64, 4
 P = 1 << 16                     # voxels per call
+RELAYOUT_ZY, RELAYOUT_X = 32, 16  # csrc/probe_warp.cu: a relayout block's tile of volT
+THREADS = 256                   # the sampling kernel's block
 launches = {"probe_warp": 0, "probe_warp_plain": 0}
 
 
@@ -97,10 +100,26 @@ def proto_warp_plain(volT, gx, gy, gz, shape):
     return out[0].to(volT.dtype)
 
 
+def launch_plan(shape, p):
+    """The two launches of facevae_probe_warp (csrc/probe_warp.cu): the
+    relayout's blocks (``relayout_tiles`` = (D*H tiles, W tiles) of
+    RELAYOUT_ZY columns by RELAYOUT_X rows of each channel, one block each,
+    the (z, y) tiles fastest in a 1D grid) and the sampler's
+    (``sample_blocks`` of THREADS points).  Raises ValueError where an index
+    or the grid passes 32 bits."""
+    d, h, w, c = shape
+    if max(c * w * d * h, p) >= 2 ** 31:
+        raise ValueError(f"volT or P={p} exceeds the kernel's 32-bit indices")
+    tiles = (-(-d * h // RELAYOUT_ZY), -(-w // RELAYOUT_X))
+    return dict(relayout_tiles=tiles, relayout_blocks=tiles[0] * tiles[1],
+                sample_blocks=-(-p // THREADS))
+
+
 def proto_warp_cuda(volT, gx, gy, gz, shape):
-    """Launch probe_warp_kernel on CUDA tensors: volT fp32 [C*W, D*H],
-    gx/gy/gz fp32 [1, P], all contiguous, C in {1, 2, 4}; raises on
-    anything else."""
+    """Launch csrc/probe_warp.cu on CUDA tensors: probe_relayout_kernel
+    re-lays volT into a channel-last scratch [D*H, W, C] (allocated here),
+    probe_warp_kernel samples it.  volT fp32 [C*W, D*H], gx/gy/gz fp32
+    [1, P], all contiguous, C in {1, 2, 4}; raises on anything else."""
     _check(volT, gx, gy, gz, shape)
     if not volT.is_cuda:
         raise ValueError(f"probe_warp kernel needs CUDA tensors, got {volT.device}")
@@ -111,16 +130,16 @@ def proto_warp_cuda(volT, gx, gy, gz, shape):
     p = gx.shape[1]
     if c not in (1, 2, 4):
         raise ValueError(f"probe_warp kernel takes C in (1, 2, 4), got {c}")
-    if max(c * w * d * h, p) >= 2 ** 31:
-        raise ValueError(f"volT or P={p} exceeds the kernel's 32-bit indices")
+    launch_plan(shape, p)
     out = torch.empty((p, c), dtype=torch.float32, device=volT.device)
     if p:
+        vol = torch.empty(volT.numel(), dtype=torch.float32, device=volT.device)
         fn = kernels.function("probe_warp", "facevae_probe_warp",
-                              [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5 + [ctypes.c_void_p])
+                              [ctypes.c_void_p] * 6 + [ctypes.c_int] * 5 + [ctypes.c_void_p])
         with torch.cuda.device(volT.device):
-            kernels.launch(launches, "probe_warp", fn, volT.data_ptr(), gx.data_ptr(),
-                           gy.data_ptr(), gz.data_ptr(), out.data_ptr(), d, h, w, c, p,
-                           common.stream(volT))
+            kernels.launch(launches, "probe_warp", fn, volT.data_ptr(), vol.data_ptr(),
+                           gx.data_ptr(), gy.data_ptr(), gz.data_ptr(), out.data_ptr(), d, h, w,
+                           c, p, common.stream(volT))
     return out
 
 
@@ -164,7 +183,10 @@ def run(dev, seed=0, runs=20):
     probe's oracle on the fp32 volume (``err``) and on the bf16-rounded
     volume (``err_exact``), the one-hot partner's (``onehot_err``); ``ms``,
     ``onehot_ms``, ``library_ms`` (F.grid_sample, 3D, on the same samples
-    normalized outside the timed call), ``bound_ms`` and ``bound_by`` (table,
+    normalized outside the timed call, from a contiguous [1,C,D,H,W] copy of
+    the table made outside it too) and ``library_view_ms`` (the same from
+    volT's own permuted view, no copy: the kernel's inputs), ``bound_ms`` and
+    ``bound_by`` (table,
     coordinates and output over 3.35 TB/s, against the fp32 operations over
     67 TFLOP/s) and the inputs (``args``)."""
     timer = common.timer(dev)
@@ -178,9 +200,15 @@ def run(dev, seed=0, runs=20):
     flat = [a[0] for a in g]
     onehot = onehot_warp(rows, *flat, shape).cpu().numpy()
     want = ref_trilinear(vol, *coords)
-    src = volT.reshape(C, W, D, H).permute(0, 2, 3, 1)[None].contiguous()   # [1,C,D,H,W]
+    view = volT.reshape(C, W, D, H).permute(0, 2, 3, 1)[None]                # [1,C,D,H,W]
+    src = view.contiguous()
     grid = torch.stack([a * (2.0 / (s - 1)) - 1.0 for a, s in zip(flat, (W, H, D))], -1)
     grid = grid.reshape(1, 1, 1, P, 3)
+
+    def library(source):
+        return F.grid_sample(source, grid, mode="bilinear", padding_mode="zeros",
+                             align_corners=True)
+
     # 8 corners x (C multiply-adds + the weights) per sample
     bound_ms, bound_by = common.bound_ms(volT.numel() * 4 + 3 * P * 4 + P * C * 4,
                                          P * 8 * (2 * C + 12))
@@ -188,9 +216,8 @@ def run(dev, seed=0, runs=20):
                 scale=float(np.abs(exact).max()), onehot_err=float(np.abs(onehot - want).max()),
                 ms=timer(lambda: proto_warp(volT, *g, shape), runs),
                 onehot_ms=timer(lambda: onehot_warp(rows, *flat, shape), runs),
-                library_ms=timer(lambda: F.grid_sample(src, grid, mode="bilinear",
-                                                       padding_mode="zeros",
-                                                       align_corners=True), runs),
+                library_ms=timer(lambda: library(src), runs),
+                library_view_ms=timer(lambda: library(view), runs),
                 bound_ms=bound_ms, bound_by=bound_by, args=(volT, *g, shape))
 
 
@@ -205,8 +232,8 @@ def main(argv=None):
     print(f"probe_warp: {r['ms']:.4f} ms   onehot-matmul: {r['onehot_ms']:.4f} ms   speedup "
           f"{r['onehot_ms'] / r['ms']:.2f}x   ({P} voxels, CW={C * W}; "
           f"{common.time_label(dev)}); bound {r['bound_ms'] * 1e3:.2f} us ({r['bound_by']}), "
-          f"F.grid_sample "
-          f"{r['library_ms']:.4f} ms")
+          f"F.grid_sample {r['library_ms']:.4f} ms on a contiguous copy of the table, "
+          f"{r['library_view_ms']:.4f} ms on volT's own permuted view")
     return 0
 
 

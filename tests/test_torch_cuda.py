@@ -718,6 +718,118 @@ def test_probe_banded_warp_kernel_matches_plain(mode, shape, budget):
         assert_close(out, kernel1.reshape(out.shape), 1e-5, f"{mode} vs kernel 1")
 
 
+def _edge_coords(g, shape, size):
+    """_probe_coords plus 3% exact last indices (size - 1) and 3% a half
+    step before them."""
+    out = []
+    for c, s in zip(_probe_coords(g, shape, size), size):
+        pick = torch.rand(shape, generator=g, device="cuda")
+        c = torch.where(pick < 0.03, torch.full_like(c, s - 1.0), c)
+        out.append(torch.where((pick >= 0.03) & (pick < 0.06), torch.full_like(c, s - 1.5),
+                               c).contiguous())
+    return out
+
+
+@pytest.mark.parametrize("shape", [(3, 5, 7), (4, 6, 10), (2, 33, 17), (16, 64, 64)])
+@pytest.mark.parametrize("C", [1, 2, 4])
+def test_probe_warp_kernel_equals_kernel_1(shape, C):
+    """Probe 7 (the relayout and the sampler) against kernel 1 at K1 = 1 on
+    the same volume, bit for bit (the same products in the same order: the
+    parent's bits, which bench_warp.py --probes holds through digests), and
+    against its plain version at 1e-5 of max|ref|, at tile edges ((z, y) and
+    x not multiples of the relayout tile) and the probe's own size, with
+    integer, last-index, far-out, NaN and +-inf coordinates."""
+    D, H, W = shape
+    P = D * H * W
+    g = torch.Generator(device="cuda").manual_seed(P + C)
+    volT = torch.randn(C * W, D * H, generator=g, device="cuda")
+    coords = [c[None] for c in _edge_coords(g, (P,), (W, H, D))]
+    p7.reset_launch_counts()
+    out = p7.proto_warp_cuda(volT, *coords, (D, H, W, C))
+    x = volT.reshape(C, W, D, H).permute(2, 3, 1, 0)[None].contiguous()
+    kernel1 = fast_warp.warp_multi_pixel_cuda(x, *(c[None] for c in coords), shape)
+    ref = p7.proto_warp_plain(volT, *coords, (D, H, W, C))
+    torch.cuda.synchronize()
+    assert p7.launches == {"probe_warp": 1, "probe_warp_plain": 1}
+    assert out.shape == (P, C) and torch.isfinite(out).all()
+    assert torch.equal(out, kernel1.reshape(P, C))
+    assert_close(out, ref, 1e-5, f"probe_warp {shape} C={C}")
+
+
+def _theta_coords(theta):
+    """The probe's inputs and its timed grids at theta (its RandomState(0)
+    draws, in its order)."""
+    _, rows3, coords = p8.inputs()
+    coords(3.0)                                   # the numerics draw
+    for t in p8.THETAS:
+        cg = coords(t)
+        if t == theta:
+            return rows3, cg
+
+
+@pytest.mark.parametrize("theta", p8.THETAS)
+def test_probe_banded_warp_equals_kernel_1_at_the_probe(theta):
+    """Probe 8 at its own call, every mode: bit for bit kernel 1 on the
+    same values in fp32 (bandonly where every box fits), the staged flags
+    as staged_flags reckons."""
+    rows3_np, cg_np = _theta_coords(theta)
+    rows3 = torch.from_numpy(rows3_np).cuda().bfloat16()
+    cg = [torch.from_numpy(a).cuda() for a in cg_np]
+    shape = (p8.D, p8.H, p8.W, p8.C)
+    kernel1 = fast_warp.warp_multi_pixel_cuda(p8.rows3_to_x(rows3, shape).float(), *cg,
+                                              shape[:3]).reshape(p8.N, -1, p8.K1 * p8.C)
+    for mode in p8.MODES:
+        host = p8.staged_flags(cg_np[1], cg_np[2], p8.D, p8.H, p8.VB, p8.BUDGET, mode)
+        staged = torch.zeros(host.shape, dtype=torch.uint8, device="cuda")
+        out = p8.banded_warp_cuda(rows3, *cg, shape, mode, staged=staged)
+        torch.cuda.synchronize()
+        np.testing.assert_array_equal(staged.bool().cpu().numpy(), host)
+        if mode != "bandonly" or host.all():
+            assert torch.equal(out, kernel1), (theta, mode)
+
+
+@pytest.mark.parametrize("W", [8, 7])
+@pytest.mark.parametrize("C", [1, 2, 4])
+def test_probe_banded_warp_at_the_budget_and_edge_coordinates(W, C):
+    """Probe 8 with one box exactly at the budget (staged) beside larger
+    ones (not), at budget 1, with integer, last-index, far-out, NaN and
+    +-inf coordinates; W = 7 takes the 2-byte staging copy and loads: every
+    mode bit for bit kernel 1 (bandonly where every box fits), within 1e-5
+    of the plain version, its flags those of staged_flags."""
+    N, D, H, K1, VB = 2, 4, 16, 3, 32
+    NV = D * H * W
+    g = torch.Generator(device="cuda").manual_seed(W * 10 + C)
+    rows3 = torch.randn(N, D * H, C * W, generator=g, device="cuda").bfloat16()
+    z, y, x = torch.meshgrid(*(torch.arange(s, device="cuda") for s in (D, H, W)), indexing="ij")
+    coords = [(base.reshape(1, 1, -1).float() + 0.5 * torch.randn(
+        N, K1, NV, generator=g, device="cuda")).contiguous() for base in (x, y, z)]
+    wild = _edge_coords(g, (N, K1, NV), (W, H, D))
+    pick = torch.rand(N, K1, NV, generator=g, device="cuda") < 0.2
+    pick[..., 2 * VB:] = False                    # the first two blocks: the wild ones
+    coords = [torch.where(pick, w, c).contiguous() for c, w in zip(coords, wild)]
+    cg_np = [c.cpu().numpy() for c in coords]
+    shape = (D, H, W, C)
+    kernel1 = fast_warp.warp_multi_pixel_cuda(p8.rows3_to_x(rows3, shape).float(), *coords,
+                                              (D, H, W)).reshape(N, -1, K1 * C)
+    rows = p8.box_rows(cg_np[1], cg_np[2], D, H, VB, "banded")
+    sizes = np.unique(rows)
+    at = int(sizes[len(sizes) // 2])
+    assert at >= 1 and (rows > at).any()
+    for budget in (at, 1):
+        for mode in p8.MODES:
+            host = p8.staged_flags(cg_np[1], cg_np[2], D, H, VB, budget, mode)
+            staged = torch.zeros(host.shape, dtype=torch.uint8, device="cuda")
+            out = p8.banded_warp_cuda(rows3, *coords, shape, mode, VB, budget, staged)
+            ref = p8.banded_warp_plain(rows3, *coords, shape, mode, VB, budget)
+            torch.cuda.synchronize()
+            np.testing.assert_array_equal(staged.bool().cpu().numpy(), host)
+            if mode == "banded" and budget == at:
+                assert host[rows == at].all() and not host[rows > at].any()
+            if mode != "bandonly" or host.all():
+                assert torch.equal(out, kernel1), (budget, mode)
+                assert_close(out, ref, 1e-5, f"{mode} budget {budget}")
+
+
 def test_probe_wrappers_refuse_what_the_kernels_do_not_take():
     cuda = torch.device("cuda")
     table = torch.zeros(2, 8, device=cuda)
@@ -741,6 +853,9 @@ def test_probe_wrappers_refuse_what_the_kernels_do_not_take():
     cg = [torch.zeros(1, 2, 128, device=cuda) for _ in range(3)]
     with pytest.raises(ValueError, match="shared memory"):
         p8.banded_warp_cuda(rows3, *cg, (4, 4, 8, 4), vb=64, budget=10 ** 6)
+    big = [torch.zeros(1, 4, 4096, device=cuda) for _ in range(3)]
+    with pytest.raises(ValueError, match="shared memory"):       # the output tile
+        p8.banded_warp_cuda(rows3, *big, (4, 4, 8, 4), vb=4096)
     with pytest.raises(ValueError, match="staged"):
         p8.banded_warp_cuda(rows3, *cg, (4, 4, 8, 4), vb=64,
                             staged=torch.zeros(1, 2, 3, dtype=torch.uint8, device=cuda))

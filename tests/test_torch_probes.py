@@ -18,7 +18,12 @@ with numpy:
   and within 2% of run_banded (the tolerance of tools/check_pallas_warp.py:
   the TPU kernels round their one-hot weights and S*wx to bf16), bandonly
   only on coordinates whose every block fits; the port's fit rate equals
-  the probe's formula, and its staged-box criterion equals a per-block loop;
+  the probe's formula, and its staged-box criterion and box sizes equal a
+  per-block loop;
+- the host-side mirrors of the kernels' launch parameters: kernel 8's
+  shared-memory plan (launch_plan, against the constants of
+  csrc/probe_warp.cu) and kernel 7's relayout index map, emulated in numpy
+  block by block;
 - the wrappers' dispatch (CPU tensors take the plain versions, counted; the
   CUDA wrappers refuse CPU tensors) and each entry point's main() on the
   CPU at a tiny size.
@@ -173,10 +178,10 @@ def test_fit_rate_is_the_probes(small_band, theta):
         cgz, s["D"], s["N"], s["K1"], s["D"] * s["H"] * s["W"], s["VB"], s["ZB"])
 
 
-def _flags_by_loop(cgy, cgz, D, H, VB, budget, mode):
-    """staged_flags as the kernel decides, one block at a time."""
+def _rows_by_loop(cgy, cgz, D, H, VB, mode):
+    """box_rows as the kernel finds the boxes, one block at a time."""
     n_, k1, nv = cgz.shape
-    out = np.zeros((n_, nv // VB, k1), bool)
+    out = np.zeros((n_, nv // VB, k1), np.int64)
     for n in range(n_):
         for b in range(nv // VB):
             boxes = []
@@ -193,10 +198,7 @@ def _flags_by_loop(cgy, cgz, D, H, VB, budget, mode):
             for k, rows in enumerate(boxes):
                 if rows:
                     zs, ys = [r[0] for r in rows], [r[1] for r in rows]
-                    size = (max(zs) - min(zs) + 1) * (max(ys) - min(ys) + 1)
-                else:
-                    size = 0
-                out[n, b, k] = size <= budget
+                    out[n, b, k] = (max(zs) - min(zs) + 1) * (max(ys) - min(ys) + 1)
     return out
 
 
@@ -210,9 +212,84 @@ def test_staged_flags_match_a_loop(rng, mode):
     cgz[0, 1, :5] = [np.nan, np.inf, -np.inf, 1e30, -1.0]
     cgy[1, 2, 3:6] = [np.nan, -1.0, H - 1.0]
     cgz[1, :, :VB] = -5.0                                    # block 0 of n=1: empty
+    rows = _rows_by_loop(cgy, cgz, D, H, VB, mode)
+    np.testing.assert_array_equal(p8.box_rows(cgy, cgz, D, H, VB, mode), rows)
     for budget in (1, 6, 12, 24):
         np.testing.assert_array_equal(p8.staged_flags(cgy, cgz, D, H, VB, budget, mode),
-                                      _flags_by_loop(cgy, cgz, D, H, VB, budget, mode))
+                                      rows <= budget)
+
+
+def test_banded_launch_plan_mirrors_the_kernel():
+    """launch_plan is csrc/probe_warp.cu's band_smem / ring_rows: at the
+    probe's call one block holds the 120 KB output tile, 205 ring rows and
+    the boxes within an H100's 227 KB; the tile's stride is an odd count of
+    store vectors; what the kernel cannot hold is refused."""
+    src = (ROOT / "facevae_tpu_torch" / "csrc" / "probe_warp.cu").read_text()
+    assert "constexpr int kBandThreads = 512;" in src and p8.WARPS == 512 // 32
+    assert "sizeof(Span) == 24" in src and p8.SPAN_BYTES == 24
+    assert "kMaxShared = 227 * 1024" in src and p8.MAX_SHARED == 227 * 1024
+    plan = p8.launch_plan((p8.D, p8.H, p8.W, p8.C), p8.K1, p8.VB, p8.BUDGET, "banded")
+    assert plan == dict(stride=240, ring_rows=205, tile=122880, ring=104960, boxes=4200,
+                        smem=232056)
+    union = p8.launch_plan((p8.D, p8.H, p8.W, p8.C), p8.K1, p8.VB, p8.BUDGET, "blockwhen")
+    assert union["boxes"] == 280 and union["ring_rows"] == 213
+    for rowbytes, vec, stride in ((240, 16, 240), (48, 16, 48), (32, 16, 48), (8, 4, 12),
+                                  (6, 2, 6)):
+        assert p8.tile_stride(rowbytes, vec) == stride
+    for shape, k1, vb, budget in (((2, 33, 17, 4), 3, 64, 1), ((5, 4, 9, 2), 1, 20, 1000),
+                                  ((16, 64, 64, 4), 15, 512, 160)):
+        for mode in p8.MODES:
+            plan = p8.launch_plan(shape, k1, vb, budget, mode)
+            row = shape[2] * shape[3] * 2
+            assert plan["ring_rows"] >= budget and plan["smem"] <= p8.MAX_SHARED
+            assert plan["smem"] + row > p8.MAX_SHARED - 15     # the ring takes what is left
+            assert plan["tile"] >= vb * k1 * shape[3] * 4 and plan["tile"] % 16 == 0
+    with pytest.raises(ValueError, match="shared memory"):    # the output tile
+        p8.launch_plan((4, 4, 8, 4), 4, 4096, p8.BUDGET, "banded")
+    with pytest.raises(ValueError, match="shared memory"):    # the budget's rows
+        p8.launch_plan((4, 4, 8, 4), 2, 64, 10 ** 6, "bandonly")
+
+
+def _relayout_by_tiles(volT, shape):
+    """probe_relayout_kernel's index map in numpy: every block of the 1D
+    grid (launch_plan's tiles, (z, y) tiles fastest) reads its tile of volT
+    and writes its (x, c) runs of vol [D*H, W, C]; returns vol and how often
+    each element was written."""
+    d, h, w, c = shape
+    dh, tzy, tx = d * h, p7.RELAYOUT_ZY, p7.RELAYOUT_X
+    tiles = p7.launch_plan(shape, 1)["relayout_tiles"]
+    vol = np.full(dh * w * c, np.nan, np.float32)
+    writes = np.zeros(dh * w * c, np.int64)
+    i = np.arange(tzy * tx * c)
+    for block in range(tiles[0] * tiles[1]):
+        zy0, x0 = (block % tiles[0]) * tzy, (block // tiles[0]) * tx
+        tile = np.zeros((tzy, tx * c + 1), np.float32)
+        zy, r = i % tzy, i // tzy                            # read: along (z, y)
+        ch, x = r // tx, r % tx
+        ok = (zy0 + zy < dh) & (x0 + x < w)
+        tile[zy[ok], (x * c + ch)[ok]] = volT[(ch * w + x0 + x)[ok], (zy0 + zy)[ok]]
+        run = min(tx, w - x0) * c
+        zy, j = i // (tx * c), i % (tx * c)                  # write: along (x, c)
+        ok = (zy0 + zy < dh) & (j < run)
+        at = ((zy0 + zy) * w + x0) * c + j
+        vol[at[ok]] = tile[zy[ok], j[ok]]
+        np.add.at(writes, at[ok], 1)
+    return vol.reshape(dh, w, c), writes
+
+
+@pytest.mark.parametrize("shape", [(16, 64, 64, 4), (3, 5, 7, 2), (2, 33, 17, 1)])
+def test_relayout_index_map_is_channel_last(rng, shape):
+    """Kernel 7's relayout writes every element of the channel-last table
+    once, with volT's value: vol[z*H + y, x, c] = volT[c*W + x, z*H + y]."""
+    d, h, w, c = shape
+    volT = rng.standard_normal((c * w, d * h)).astype(np.float32)
+    vol, writes = _relayout_by_tiles(volT, shape)
+    assert (writes == 1).all()
+    np.testing.assert_array_equal(vol, volT.reshape(c, w, d * h).transpose(2, 1, 0))
+    plan = p7.launch_plan(shape, 1000)
+    assert plan["sample_blocks"] == -(-1000 // p7.THREADS)
+    with pytest.raises(ValueError, match="32-bit"):
+        p7.launch_plan(shape, 2 ** 31)
 
 
 def test_cpu_tensors_take_the_plain_versions(small_band):
