@@ -74,6 +74,20 @@ Phases, each fatal on failure (exit code 1, no result line):
               multi-grid kernel once (MFE) and each single-grid kernel once
               (Generator), the plain versions never.  Prints the step time,
               frames/s and peak memory.
+     checkpoint  the epoch files of facevae_tpu_torch/train/checkpoint.py:
+              ModelConfig() fp32 after one training step at batch 8 (both
+              Adam states at step 1) saved into a temporary directory and
+              loaded into a freshly seeded state: every parameter, buffer,
+              Adam exp_avg / exp_avg_sq / step, epoch and step bit for bit;
+              the file's bytes, save and load seconds.  The server's engine
+              built from the file (serve.build_engine --ckp_dir --ckp) drives
+              a batch of 8: the frames of a pipeline over the state in memory
+              (bit for bit, else within 1e-6 of max|ref|), the multi-grid and
+              single-grid forward kernels once each, the plain versions
+              never.  A tiny_config() state saved after one step and loaded
+              into a fresh one: one step of each under
+              torch.use_deterministic_algorithms(True), with the same TPS
+              draw, gives the same losses and the same state bit for bit.
   8. train_bf16  the same step with ModelConfig(compute_dtype="bfloat16"):
               every loss finite, parameters and Adam state fp32; per step the
               multi-grid forward 3 times (MFE, Generator, TPS), its dgrid
@@ -94,7 +108,8 @@ Phases, each fatal on failure (exit code 1, no result line):
               version and library call (10 calls captured in one CUDA
               graph, the median CUDA-event time of 20 replays over 10: the
               host's Python would otherwise outlast these kernels), and
-              the bounds; F.grid_sample also on the probes' own layouts
+              the bounds; probe 9 beside its launch floor, an empty kernel in
+              its grid timed the same way; F.grid_sample also on the probes' own layouts
               (probe 7: volT's permuted view; probe 8: its fp32 source made
               from rows3 inside the timed call).
 Then a JSON line of kernel results, the card's name and power limit, and the
@@ -791,6 +806,128 @@ def _train(card, dtype):
     return r["launches"]
 
 
+def _state_differences(a, b):
+    """Where two train states differ: every parameter and buffer of every
+    net, both optimizers' exp_avg / exp_avg_sq / step (in the optimizers'
+    parameter order), epoch and step, compared bit for bit."""
+    import torch
+    bad = [k for k in ("epoch", "step") if getattr(a, k) != getattr(b, k)]
+    for n, net in a.nets.items():
+        other = b.nets[n].state_dict()
+        bad += [f"{n}.{k}" for k, v in net.state_dict().items()
+                if not torch.equal(v.cpu(), other[k].cpu())]
+    for key in ("g_opt", "d_opt"):
+        pa = [p for g in getattr(a, key).param_groups for p in g["params"]]
+        pb = [p for g in getattr(b, key).param_groups for p in g["params"]]
+        sa, sb = getattr(a, key).state, getattr(b, key).state
+        for i, (x, y) in enumerate(zip(pa, pb)):
+            if set(sa.get(x, {})) != set(sb.get(y, {})):
+                bad.append(f"{key}[{i}] state keys")
+                continue
+            bad += [f"{key}[{i}].{k}" for k, v in sa.get(x, {}).items()
+                    if not torch.equal(v.cpu(), sb[y][k].cpu())]
+        if len(pa) != len(pb):
+            bad.append(f"{key}: {len(pa)} vs {len(pb)} parameters")
+    return bad
+
+
+def phase_checkpoint(card):
+    """The epoch checkpoint (facevae_tpu_torch/train/checkpoint.py) on the
+    card: a full-width fp32 state after one step saved and loaded bit for
+    bit; the server's engine built from the file against a pipeline over the
+    state in memory; a deterministic tiny_config step resumed from a file
+    against the same step of the state that was saved."""
+    import tempfile
+    import numpy as np
+    import torch
+    from facevae_tpu_torch import serve
+    from facevae_tpu_torch.config import Config, tiny_config
+    from facevae_tpu_torch.models import G_MODEL_NAMES
+    from facevae_tpu_torch.ops import fast_warp
+    from facevae_tpu_torch.train import (InferencePipeline, build_all_modules, checkpoint,
+                                         create_train_state, train_step)
+    device = torch.device("cuda")
+    cfg = Config()
+    size = cfg.model.image_size
+    g = torch.Generator(device=device).manual_seed(3)
+    state = create_train_state(cfg, device)
+    batch = tuple(torch.rand(N_BATCH, size, size, 3, generator=g, device=device)
+                  for _ in range(4))
+    train_step(state, batch, generator=g)
+    state.epoch = 1
+    torch.cuda.synchronize()
+    with tempfile.TemporaryDirectory() as d:
+        t0 = time.perf_counter()
+        path = checkpoint.save_checkpoint(d, state, 1)
+        save_s = time.perf_counter() - t0
+        loaded = create_train_state(cfg, device)
+        t0 = time.perf_counter()
+        checkpoint.load_checkpoint(d, 1, loaded)
+        torch.cuda.synchronize()
+        load_s = time.perf_counter() - t0
+        nbytes = Path(path).stat().st_size
+        n_params = sum(p.numel() for m in state.nets.values() for p in m.parameters())
+        print(f"[checkpoint] {card}: ModelConfig() fp32 after one step at batch {N_BATCH}: "
+              f"{nbytes} bytes ({n_params} parameters), save {save_s:.2f} s, load {load_s:.2f} s "
+              f"(into a freshly seeded state on the card)")
+        bad = _state_differences(state, loaded)
+        check(not bad, f"full-width state after save and load differs at {bad[:8]}")
+        check(all(float(st["step"]) == 1 for opt in (loaded.g_opt, loaded.d_opt)
+                  for st in opt.state.values())
+              and len(loaded.g_opt.state) + len(loaded.d_opt.state) > 0,
+              "the loaded Adam states are not at step 1")
+        del loaded
+        engine = serve.build_engine(serve.parse_args(
+            ["--ckp_dir", d, "--ckp", "1", "--device", "cuda", "--max_batch", str(N_BATCH)]))
+    try:
+        memory = InferencePipeline(cfg, {n: state.nets[n] for n in G_MODEL_NAMES})
+        imgs = torch.rand(N_BATCH, size, size, 3, generator=g, device=device)
+        ref = memory.drive_frame(*memory.encode_source(imgs), imgs)
+        enc = engine.pipe.encode_source(imgs)
+        fast_warp.reset_launch_counts()
+        out = engine.pipe.drive_frame(*enc, imgs)
+        torch.cuda.synchronize()
+        counts = dict(fast_warp.launches)
+    finally:
+        engine.stop()
+    err, scale = (out - ref).abs().max().item(), ref.abs().max().item()
+    same = bool(torch.equal(out, ref))
+    print(f"[checkpoint] server from the file vs a pipeline over the state in memory, drive "
+          f"batch of {N_BATCH}: bit for bit {'yes' if same else 'no'} (max|err| {err:.3e}, "
+          f"max|ref| {scale:.3f}); warp launches {counts}")
+    check(same or err <= 1e-6 * scale, f"served frames from the file differ: {err:.3e}")
+    want = {**dict.fromkeys(counts, 0), "warp_fwd": 1, "grid_fwd": 1}
+    check(counts == want, f"served batch launches {counts}, want {want}")
+    del state, memory, engine
+    torch.cuda.empty_cache()
+
+    tiny = tiny_config()
+    rs, images, _ = tiny_step_inputs(seed=4)
+    images = [torch.from_numpy(b).to(device) for b in images]
+    saved = create_train_state(tiny, device, numpy_weights(build_all_modules(tiny, device), 4))
+    train_step(saved, images, generator=torch.Generator(device=device).manual_seed(1))
+    saved.epoch = 1
+    with tempfile.TemporaryDirectory() as d:
+        checkpoint.save_checkpoint(d, saved, 1)
+        resumed = checkpoint.load_checkpoint(d, 1, create_train_state(tiny, device))
+    outs = []
+    torch.use_deterministic_algorithms(True)
+    try:
+        for st in (saved, resumed):
+            out = train_step(st, images, generator=torch.Generator(device=device).manual_seed(2))
+            outs.append({k: v.clone() for k, v in {**out["losses_g"], **out["losses_d"]}.items()})
+        torch.cuda.synchronize()
+    finally:
+        torch.use_deterministic_algorithms(False)
+    diff = [k for k in outs[0] if not torch.equal(outs[0][k], outs[1][k])]
+    bad = _state_differences(saved, resumed)
+    print(f"[checkpoint] tiny_config resumed from the file vs the state that was saved, one "
+          f"deterministic step each (same TPS draw): {len(outs[0])} losses, "
+          f"{len(diff)} differ; states after the step differ at {len(bad)} tensors")
+    check(not diff and not bad, f"resumed step differs: losses {diff}, state {bad[:8]}")
+    return {"bytes": nbytes, "save_s": save_s, "load_s": load_s}
+
+
 def _probe_row(name, out, ref, r, plain_ms, site):
     """One kernel-vs-plain comparison of phase 9 (out, ref: the two results
     on the same inputs; r: the probe's run() figures)."""
@@ -887,8 +1024,10 @@ def phase_probes():
         row = _probe_row("probe_gather", p9.gather_cuda(table, idx), p9.gather_plain(table, idx),
                          r, pc.graph_ms(lambda: p9.gather_plain(table, idx)), f"SxTxP={r['case']}")
         rows.append(row)
+        row["floor_ms"] = r["floor_ms"]
         print(f"[probes] probe_gather S,T,P={r['case']}: bit for bit vs plain {row['equal']}, "
-              f"vs numpy {r['equal']}; {r['ms'] * 1e3:.2f} us ({r['gbps']:.1f} GB/s), plain "
+              f"vs numpy {r['equal']}; {r['ms'] * 1e3:.2f} us ({r['gbps']:.1f} GB/s), launch "
+              f"floor (an empty kernel in its grid) {r['floor_ms'] * 1e3:.2f} us, plain "
               f"{row['plain_ms'] * 1e3:.2f} us, torch.gather {r['library_ms'] * 1e3:.2f} us, "
               f"bound {r['bound_ms'] * 1e3:.3f} us")
         check(row["equal"] and r["equal"], f"probe_gather {r['case']} differs")
@@ -927,6 +1066,7 @@ def main() -> int:
                          ("golden", phase_golden), ("serve", lambda: phase_serve(card)),
                          ("train_tiny", phase_train_tiny),
                          ("train", lambda: _train(card, "float32")),
+                         ("checkpoint", lambda: phase_checkpoint(card)),
                          ("train_bf16", lambda: _train(card, "bfloat16")),
                          ("probes", phase_probes)):
             t0 = time.perf_counter()
@@ -970,6 +1110,8 @@ def main() -> int:
             "bound_ms": sum(r["bound_ms"] for r in mine), "bound_by": mine[0]["bound_by"],
             "library_ms": sum(r["library_ms"] for r in mine),
             "sites": [r["site"] for r in mine]})
+        if name == "probe_gather":
+            kernels[-1]["floor_ms"] = sum(r["floor_ms"] for r in mine)
     print(json.dumps({"kernels": kernels}))
     print(f"[done] {time.perf_counter() - t_all:.1f} s; phases {json.dumps(phase_s)}")
     print(smi())

@@ -5,7 +5,7 @@ two checkouts on one card.
 
     python facevae_tpu_torch/bench_warp.py              # this checkout
     python facevae_tpu_torch/bench_warp.py --root DIR   # the checkout at DIR
-    python facevae_tpu_torch/bench_warp.py --probes [--root DIR]   # kernels 7 and 8
+    python facevae_tpu_torch/bench_warp.py --probes [--root DIR]   # kernels 7, 8 and 9
 
 ``--root`` times another checkout's kernels (say a ``git archive`` of the
 parent commit) on the same inputs: they are drawn from a seeded
@@ -42,12 +42,13 @@ F.grid_sample's forward and backward on the same samples
 (``library_calls``: the yardstick chip_smoke.py phase 3 prints beside the
 kernels, never called by the port).
 
-``--probes`` times the two probe warps instead (``probe_rows``, at the
+``--probes`` times three probe kernels instead (``probe_rows``, at the
 probes' own shapes and on their own inputs, drawn with numpy by this
 checkout's probe modules): kernel 8 (probe_banded_warp) in each mode at
-theta = 3 and 40 degrees, and kernel 7 (probe_warp), with digests of the
-inputs, of the outputs and of kernel 8's staged flags, and F.grid_sample's
-time on the same samples.  Needs a CUDA card.
+theta = 3 and 40 degrees, kernel 7 (probe_warp) and kernel 9
+(probe_gather) at its seven cases, with digests of the inputs, of the
+outputs and of kernel 8's staged flags, F.grid_sample's (torch.gather's)
+time on the same samples, and kernel 9's launch floor.  Needs a CUDA card.
 """
 from __future__ import annotations
 
@@ -304,8 +305,10 @@ def run():
 
 
 def probe_rows():
-    """--probes: one dict per kernel 8 (mode, theta) and one for kernel 7:
-    device ms per call of the timed checkout's wrapper, F.grid_sample's
+    """--probes: one dict per kernel 8 (mode, theta), one for kernel 7 and
+    one per kernel 9 case: device ms per call of the timed checkout's
+    wrapper, kernel 9's launch floor where the checkout has it (an empty
+    kernel in its grid, ``floor_ms``) and torch.gather's time, F.grid_sample's
     (kernel 8: on an fp32 source repeated per grid, made before the timed
     call, ``library_ms``, and inside it from rows3, ``library_relayout_ms``;
     kernel 7: on a contiguous copy of the table, ``library_ms``, and on
@@ -365,6 +368,17 @@ def probe_rows():
                      library_view_ms=graph_ms(library(view, grid)),
                      in_digest=digest(volT, *g),
                      digest=digest(p7.proto_warp_cuda(volT, *g, shape))))
+    from facevae_tpu_torch.probes import microbench_gather as p9
+    g9 = _module("probes/microbench_gather.py")
+    floor = getattr(p9, "gather_floor_cuda", None)       # where the checkout has it
+    for S, T, P in g9.CASES:
+        table, idx = (torch.from_numpy(a).cuda() for a in g9.inputs(S, T, P))
+        ilong = idx.long()
+        rows.append(dict(kernel="probe_gather", case=(S, T, P),
+                         ms=graph_ms(lambda: p9.gather_cuda(table, idx)),
+                         floor_ms=None if floor is None else graph_ms(lambda: floor(table, idx)),
+                         library_ms=graph_ms(lambda: torch.gather(table, 1, ilong)),
+                         in_digest=digest(table, idx), digest=digest(p9.gather_cuda(table, idx))))
     return rows
 
 
@@ -373,7 +387,7 @@ def main(argv=None):
     p.add_argument("--root", default=str(Path(__file__).resolve().parents[1]),
                    help="the checkout whose facevae_tpu_torch is timed (default: this one)")
     p.add_argument("--probes", action="store_true",
-                   help="time the probe warps (kernels 7 and 8) instead of kernels 1-6")
+                   help="time probe kernels 7, 8 and 9 instead of kernels 1-6")
     args = p.parse_args(argv)
     sys.path.insert(0, str(Path(args.root).resolve()))
     import torch

@@ -17,8 +17,18 @@ mismatch raises ValueError.
 
 load_jax_train_state carries a whole JAX train state across (g_params,
 d_params, c_params, teachers, batch_stats, spectral), net by net through
-load_jax_variables.  The teachers (Hopenet, the perceptual loss's VGG stacks)
-come this way: the port never draws teacher weights of its own for parity.
+load_jax_variables, and with optimizers given, optax's Adam states too
+(mu, nu -> exp_avg, exp_avg_sq by the same name map, count -> each
+parameter's step).  The teachers (Hopenet, the perceptual
+loss's VGG stacks) come this way: the port never draws teacher weights of
+its own for parity.
+
+The way back, for the port's own checkpoints in the JAX package's format:
+jax_tree_from_state_dict inverts state_dict_from_jax (a weight of rank 2
+or more -> kernel, a 1-D weight -> scale, running_mean/var -> batch_stats,
+weight_u/v -> spectral u/v in the (K..., I) flattening), and
+adam_state_dicts / optax_adam_tree give a torch Adam's state in optax's
+ScaleByAdamState layout.
 
 A JAX leaf or collection with no name in the map raises UnmappedLeaf, both a
 ValueError and a KeyError (the teacher files of losses/pretrained.py raise
@@ -68,6 +78,15 @@ def _torch_kernel(k: np.ndarray) -> np.ndarray:
     raise ValueError(f"unexpected kernel rank {k.ndim}")
 
 
+def _jax_kernel(w: np.ndarray) -> np.ndarray:
+    if w.ndim == 2:                                  # (out, in) -> Dense (in, out)
+        return w.T
+    if w.ndim in (4, 5):                             # (O, I, *k) -> (*k, I, O)
+        nd = w.ndim - 2
+        return w.transpose(tuple(range(2, nd + 2)) + (1, 0))
+    raise ValueError(f"unexpected weight rank {w.ndim}")
+
+
 class UnmappedLeaf(KeyError, ValueError):
     """A JAX leaf or variable collection that the name map does not know."""
 
@@ -108,6 +127,38 @@ def state_dict_from_jax(variables: Mapping[str, Any]) -> Dict[str, np.ndarray]:
     return out
 
 
+def jax_tree_from_state_dict(sd: Mapping[str, Any]) -> Dict[str, Any]:
+    """The inverse of state_dict_from_jax: one net's {state_dict key: numpy
+    array} -> its JAX variables {"params", "batch_stats", "spectral"} as
+    nested numpy (collections that would be empty left out)."""
+    out: Dict[str, Dict[str, Any]] = {}
+    names = {"bias": ("params", "bias"), "running_mean": ("batch_stats", "mean"),
+             "running_var": ("batch_stats", "var"), "weight_u": ("spectral", "u"),
+             "weight_v": ("spectral", "v")}
+    for key in sorted(sd, key=natural_key):
+        a = np.asarray(sd[key])
+        *mod, leaf = key.split(".")
+        if leaf == "weight":
+            col, name = ("params", "kernel") if a.ndim >= 2 else ("params", "scale")
+            a = _jax_kernel(a) if a.ndim >= 2 else a
+        elif leaf in names:
+            col, name = names[leaf]
+        else:
+            raise UnmappedLeaf(f"state_dict key {key} has no JAX leaf")
+        if leaf == "weight_v":
+            w = sd.get(".".join(mod + ["weight"]))
+            if w is None:
+                raise ValueError(f"{key} has no weight")
+            shape = tuple(w.shape[1:])                  # v is (I, *k) flattened
+            nd = len(shape) - 1
+            a = a.reshape(shape).transpose(tuple(range(1, nd + 1)) + (0,)).reshape(-1)
+        node = out.setdefault(col, {})
+        for m in mod:
+            node = node.setdefault(m, {})
+        node[name] = np.ascontiguousarray(a)
+    return out
+
+
 def load_jax_variables(model: torch.nn.Module, variables: Mapping[str, Any]):
     """Copy one net's JAX variables into ``model`` (on its device), strictly."""
     new = state_dict_from_jax(variables)
@@ -129,12 +180,115 @@ def load_jax_variables(model: torch.nn.Module, variables: Mapping[str, Any]):
 TRAIN_STATE_KEYS = ("g_params", "d_params", "c_params", "teachers", "batch_stats", "spectral")
 
 
-def load_jax_train_state(nets: Mapping[str, torch.nn.Module], tree: Mapping[str, Any]):
+def net_variables(tree: Mapping[str, Any], name: str) -> Dict[str, Any]:
+    """One net's JAX variables out of a train-state tree: a teacher's own
+    tree, or the net's params with its batch_stats and spectral trees."""
+    if name in tree["teachers"]:
+        return tree["teachers"][name]
+    for col in ("g_params", "d_params", "c_params"):
+        if name in tree[col]:
+            variables = {"params": tree[col][name]}
+            for c in ("batch_stats", "spectral"):
+                if name in tree[c]:
+                    variables[c] = tree[c][name]
+            return variables
+    raise ValueError(f"the train state has no net {name!r}")
+
+
+def _named_params(opt: torch.optim.Optimizer, nets: Mapping[str, torch.nn.Module]):
+    """[(net, key, parameter)] of ``opt`` in its own order (the order of its
+    state_dict's indices), each parameter named by the net holding it."""
+    names = {id(p): (n, k) for n, net in nets.items() for k, p in net.named_parameters()}
+    out = []
+    for group in opt.param_groups:
+        for p in group["params"]:
+            if id(p) not in names:
+                raise ValueError(f"an optimizer parameter of shape {tuple(p.shape)} is "
+                                 "in none of the nets")
+            out.append(names[id(p)] + (p,))
+    covered = {n for n, _, _ in out}
+    for n in covered:
+        own = {k for k, _ in nets[n].named_parameters()}
+        stepped = {k for m, k, _ in out if m == n}
+        if own != stepped:
+            raise ValueError(f"the optimizer holds part of {n}: lacks {sorted(own - stepped)}")
+    return out
+
+
+def _optax_adam_state(opt: torch.optim.Adam, nets: Mapping[str, torch.nn.Module],
+                      adam: Mapping[str, Any]) -> Dict[int, Dict[str, torch.Tensor]]:
+    """The state of torch Adam ``opt`` (over whole nets of ``nets``) that
+    optax's ScaleByAdamState ``adam`` ({"count", "mu", "nu"}, mu and nu
+    keyed by net as the nets' params, nested numpy) holds, by the index of
+    ``opt``'s state_dict; strictly: mu and nu must cover the same nets as
+    ``opt``, leaf for leaf.  exp_avg / exp_avg_sq are mu / nu through the
+    params' name map, each parameter's step is count: the two make the same
+    update, lr * m_hat / (sqrt(v_hat) + eps).  A count of 0 gives no state,
+    as a fresh torch Adam has."""
+    if set(adam) != {"count", "mu", "nu"}:
+        raise ValueError(f"an optax Adam state has count, mu, nu; got {sorted(adam)}")
+    named = _named_params(opt, nets)
+    covered = sorted({n for n, _, _ in named})
+    moments = {}
+    for m in ("mu", "nu"):
+        if sorted(adam[m]) != covered:
+            raise ValueError(f"optax {m} covers {sorted(adam[m])}, the optimizer {covered}")
+        moments[m] = {n: state_dict_from_jax({"params": adam[m][n]}) for n in covered}
+        for n in covered:
+            own = {k for k, _ in nets[n].named_parameters()}
+            if set(moments[m][n]) != own:
+                raise ValueError(f"optax {m}/{n} and the parameters differ: "
+                                 f"{sorted(set(moments[m][n]) ^ own)}")
+    count = int(np.asarray(adam["count"]))
+    state = {}
+    for i, (n, k, p) in enumerate(named):
+        mu, nu = moments["mu"][n][k], moments["nu"][n][k]
+        if tuple(mu.shape) != tuple(p.shape) or tuple(nu.shape) != tuple(p.shape):
+            raise ValueError(f"optax moments of {n}.{k}: {mu.shape}, {nu.shape} vs {tuple(p.shape)}")
+        if count:
+            state[i] = {"step": torch.tensor(float(count), dtype=torch.float32),
+                        "exp_avg": torch.tensor(mu, dtype=p.dtype, device=p.device),
+                        "exp_avg_sq": torch.tensor(nu, dtype=p.dtype, device=p.device)}
+    return state
+
+
+def adam_state_dicts(opt: torch.optim.Adam, nets: Mapping[str, torch.nn.Module]):
+    """A torch Adam's state by name: (count, {net: {key: exp_avg}}, {net:
+    {key: exp_avg_sq}}), tensors where they lie (a parameter with no state
+    yet: zeros).  count is the step every stepped parameter shares (0 for
+    none); parameters that disagree raise."""
+    mu: Dict[str, Dict[str, torch.Tensor]] = {}
+    nu: Dict[str, Dict[str, torch.Tensor]] = {}
+    steps = set()
+    for n, k, p in _named_params(opt, nets):
+        st = opt.state.get(p, {})
+        if st:
+            steps.add(int(st["step"]))
+        mu.setdefault(n, {})[k] = st["exp_avg"].detach() if st else torch.zeros_like(p.detach())
+        nu.setdefault(n, {})[k] = st["exp_avg_sq"].detach() if st else torch.zeros_like(p.detach())
+    if len(steps) > 1:
+        raise ValueError(f"the optimizer's parameters are at different steps {sorted(steps)}")
+    return (steps.pop() if steps else 0), mu, nu
+
+
+def optax_adam_tree(count: int, mu: Mapping[str, Mapping[str, Any]],
+                    nu: Mapping[str, Mapping[str, Any]]) -> Dict[str, Any]:
+    """adam_state_dicts' result (numpy leaves) in optax's ScaleByAdamState
+    layout: {"count": int32, "mu": {net: params tree}, "nu": ...}."""
+    return {"count": np.asarray(count, np.int32),
+            "mu": {n: jax_tree_from_state_dict(sd).get("params", {}) for n, sd in mu.items()},
+            "nu": {n: jax_tree_from_state_dict(sd).get("params", {}) for n, sd in nu.items()}}
+
+
+def load_jax_train_state(nets: Mapping[str, torch.nn.Module], tree: Mapping[str, Any],
+                         optimizers: Mapping[str, torch.optim.Adam] = None):
     """Copy a JAX TrainState's variables (``tree``: a mapping with
     TRAIN_STATE_KEYS, nested numpy) into the port's ``nets`` (keyed by the
     JAX names), strictly: every net of ``nets`` must be filled, and every
-    tree of ``tree`` must have a net."""
-    missing = [k for k in TRAIN_STATE_KEYS if k not in tree]
+    tree of ``tree`` must have a net.  ``optimizers`` ({"g_opt": Adam,
+    "d_opt": Adam}) are filled from the tree's optax states of those names
+    (chain(scale_by_adam, scale): {"0": ScaleByAdamState, "1": {}})."""
+    missing = [k for k in TRAIN_STATE_KEYS + tuple(optimizers or ()) if k not in tree]
     if missing:
         raise ValueError(f"train state lacks {missing}")
     params = {**tree["g_params"], **tree["d_params"], **tree["c_params"]}
@@ -146,12 +300,16 @@ def load_jax_train_state(nets: Mapping[str, torch.nn.Module], tree: Mapping[str,
         raise ValueError(f"train state and nets differ: state trees with no params {sorted(stray)}, "
                          f"nets the port lacks {sorted(unknown)}, "
                          f"port nets with no state {sorted(unfilled)}")
-    for name, p in params.items():
-        variables = {"params": p}
-        for col in ("batch_stats", "spectral"):
-            if name in tree[col]:
-                variables[col] = tree[col][name]
-        load_jax_variables(nets[name], variables)
-    for name, variables in teachers.items():
-        load_jax_variables(nets[name], variables)
+    adam = {}                          # checked before any net is filled
+    for key, opt in (optimizers or {}).items():
+        chain = tree[key]
+        if set(chain) != {"0", "1"} or len(chain["1"]):
+            raise ValueError(f"{key} is not optax.adam's state (chain of scale_by_adam "
+                             f"and an empty scale state): keys {sorted(chain)}")
+        adam[key] = _optax_adam_state(opt, nets, chain["0"])
+    for name in list(params) + list(teachers):
+        load_jax_variables(nets[name], net_variables(tree, name))
+    for key, state in adam.items():
+        opt = optimizers[key]
+        opt.load_state_dict({"state": state, "param_groups": opt.state_dict()["param_groups"]})
     return nets

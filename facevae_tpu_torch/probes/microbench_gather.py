@@ -7,8 +7,9 @@ fp32.  The TPU probe asked whether Mosaic lowers a lane-axis take_along_axis
 at table widths 128 to 65536; on the card the gather is
 csrc/probe_gather.cu (probe_gather_kernel).  Per case it prints whether the
 result equals numpy's take_along_axis (the probe's oracle) bit for bit, the
-time per call, GB/s gathered, the bound and torch.gather's time on the same
-inputs.  An index outside [0, T) reads 0 in the kernel and in its plain
+time per call, GB/s gathered, the bound, torch.gather's time on the same
+inputs and, on the card, the launch floor: an empty kernel in the same
+grid.  An index outside [0, T) reads 0 in the kernel and in its plain
 version.
 """
 from __future__ import annotations
@@ -25,6 +26,7 @@ from facevae_tpu_torch.probes import common
 CASES = ((8, 128, 1024), (8, 1024, 1024), (8, 1024, 8192), (8, 8192, 8192),
          (8, 65536, 8192), (32, 1024, 8192), (16, 65536, 8192))
 launches = {"probe_gather": 0, "probe_gather_plain": 0}
+floor_launches = {"probe_gather_floor": 0}
 
 
 def reset_launch_counts():
@@ -54,9 +56,8 @@ def gather_plain(table, idx):
     return torch.where(inside, got, got.new_zeros(()))
 
 
-def gather_cuda(table, idx):
-    """Launch probe_gather_kernel on CUDA tensors: table fp32 [S, T], idx
-    int32 [S, P], both contiguous; raises on anything else."""
+def _launch_args(table, idx):
+    """Check what the kernel takes; (out, S, T, P) for a launch."""
     _check(table, idx)
     if not table.is_cuda:
         raise ValueError(f"probe_gather kernel needs CUDA tensors, got {table.device}")
@@ -64,15 +65,37 @@ def gather_cuda(table, idx):
     common.check_tensor("probe_gather", "idx", idx, torch.int32, table.device)
     S, T = table.shape
     P = idx.shape[1]
-    if max(S, T, P) >= 2 ** 31 or S * P >= 2 ** 31 * 256:
-        raise ValueError(f"[S,T,P]={[S, T, P]} exceeds the kernel's 32-bit sizes or grid")
-    out = torch.empty((S, P), dtype=table.dtype, device=table.device)
+    if max(S, T, P) >= 2 ** 31 - 4:
+        raise ValueError(f"[S,T,P]={[S, T, P]} exceeds the kernel's 32-bit sizes")
+    return torch.empty((S, P), dtype=table.dtype, device=table.device), S, T, P
+
+
+def gather_cuda(table, idx):
+    """Launch probe_gather_kernel on CUDA tensors: table fp32 [S, T], idx
+    int32 [S, P], both contiguous; raises on anything else.  Its 16-byte
+    form where P % 4 == 0 and idx is 16-byte aligned, else its scalar one."""
+    out, S, T, P = _launch_args(table, idx)
     if out.numel():
+        vec = int(P % 4 == 0 and idx.data_ptr() % 16 == 0 and out.data_ptr() % 16 == 0)
         fn = kernels.function("probe_gather", "facevae_probe_gather",
-                              [ctypes.c_void_p] * 3 + [ctypes.c_int] * 3 + [ctypes.c_void_p])
+                              [ctypes.c_void_p] * 3 + [ctypes.c_int] * 4 + [ctypes.c_void_p])
         with torch.cuda.device(table.device):
             kernels.launch(launches, "probe_gather", fn, table.data_ptr(), idx.data_ptr(),
-                           out.data_ptr(), S, T, P, common.stream(table))
+                           out.data_ptr(), S, T, P, vec, common.stream(table))
+    return out
+
+
+def gather_floor_cuda(table, idx):
+    """Launch an empty kernel in probe_gather_kernel's grid and block on the
+    same arguments (it writes nothing): the launch floor that kernel 9's
+    time is read against.  Counted in floor_launches, not launches."""
+    out, S, T, P = _launch_args(table, idx)
+    if out.numel():
+        fn = kernels.function("probe_gather", "facevae_probe_gather_floor",
+                              [ctypes.c_void_p] * 3 + [ctypes.c_int] * 3 + [ctypes.c_void_p])
+        with torch.cuda.device(table.device):
+            kernels.launch(floor_launches, "probe_gather_floor", fn, table.data_ptr(),
+                           idx.data_ptr(), out.data_ptr(), S, T, P, common.stream(table))
     return out
 
 
@@ -87,7 +110,9 @@ def run(dev, cases=None, seed=0, runs=20):
     numpy's take_along_axis (``equal``, ``err``), ``ms`` per call, GB/s
     gathered, ``bound_ms`` and ``bound_by`` (the distinct table entries
     read, the indices and the output over 3.35 TB/s), torch.gather's
-    ``library_ms`` and the inputs (``args``); cases default to CASES."""
+    ``library_ms``, on the card the launch floor ``floor_ms`` (an empty
+    kernel in the same grid, gather_floor_cuda; None on the CPU) and the
+    inputs (``args``); cases default to CASES."""
     timer = common.timer(dev)
     rows = []
     for S, T, P in CASES if cases is None else cases:
@@ -98,11 +123,13 @@ def run(dev, cases=None, seed=0, runs=20):
         ms = timer(lambda: gather(table, idx), runs)
         ilong = idx.long()
         library_ms = timer(lambda: torch.gather(table, 1, ilong), runs)
+        floor_ms = (timer(lambda: gather_floor_cuda(table, idx), runs) if table.is_cuda
+                    else None)
         touched = torch.unique(ilong + torch.arange(S, device=dev)[:, None] * T).numel()
         bound_ms, bound_by = common.bound_ms(4 * (touched + 2 * S * P))
         rows.append(dict(case=(S, T, P), equal=bool(np.array_equal(got, want)),
                          err=float(np.abs(got - want).max()), ms=ms,
-                         gbps=S * P * 4 / (ms * 1e-3) / 1e9, library_ms=library_ms,
+                         gbps=S * P * 4 / (ms * 1e-3) / 1e9, library_ms=library_ms, floor_ms=floor_ms,
                          bound_ms=bound_ms, bound_by=bound_by, args=(table, idx)))
     return rows
 
@@ -116,7 +143,9 @@ def main(argv=None):
         print(f"S={S:3d} T={T:6d} P={P:6d} float32 ok={r['equal']}  "
               f"{r['ms'] * 1e3:9.1f} us ({common.time_label(dev)})  {r['gbps']:8.1f} GB/s "
               f"gathered; bound {r['bound_ms'] * 1e3:.2f} us, torch.gather "
-              f"{r['library_ms'] * 1e3:.1f} us")
+              f"{r['library_ms'] * 1e3:.1f} us"
+              + ("" if r["floor_ms"] is None else
+                 f", an empty kernel in the same grid {r['floor_ms'] * 1e3:.1f} us"))
     return 0
 
 

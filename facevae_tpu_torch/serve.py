@@ -15,8 +15,14 @@ the default 10 ms window, which a full-width flush (~170 ms) outlasts:
 
 Payloads are raw RGB bytes (H*W*3 uint8) or PNG; responses are raw RGB bytes.
 Requests are collected into batches of --max_batch (padded), flushed when
-full or when the oldest has waited --batch_window_ms.  Loading checkpoints
-is not ported yet, so the server needs --random_init true.
+full or when the oldest has waited --batch_window_ms.  The six G nets come
+from the epoch file --ckp_dir/%08d-checkpoint.msgpack of epoch --ckp,
+written by either package's save_checkpoint (train/checkpoint.py), or with
+--random_init true from a seed:
+
+    python -m facevae_tpu_torch.serve --ckp_dir ckp --ckp 12       # on the card
+    python -m facevae_tpu_torch.serve --tiny true --image_size 64 \
+        --ckp_dir ckp --ckp 0 --device cpu                        # plain versions
 """
 from __future__ import annotations
 
@@ -33,7 +39,9 @@ import numpy as np
 import torch
 
 from facevae_tpu_torch.config import Config, ModelConfig, tiny_config
+from facevae_tpu_torch.convert import load_jax_variables, net_variables
 from facevae_tpu_torch.models import build_models
+from facevae_tpu_torch.train.checkpoint import read_checkpoint
 from facevae_tpu_torch.train.inference import InferencePipeline
 
 
@@ -60,7 +68,7 @@ def parse_args(argv=None):
     p.add_argument("--max_batch", type=int, default=8)
     p.add_argument("--batch_window_ms", type=float, default=10.0)
     p.add_argument("--random_init", type=_flag, default=False,
-                   help="seeded random weights (checkpoint loading is not ported yet)")
+                   help="seeded random weights instead of --ckp_dir/--ckp")
     p.add_argument("--device", type=str, default="cuda")
     return p.parse_args(argv)
 
@@ -270,15 +278,18 @@ def make_handler(engine, size):
 
 
 def build_engine(args) -> BatchedEngine:
-    """Config, seeded random models on args.device, pipeline and engine."""
-    if not args.random_init:
-        raise SystemExit("loading JAX checkpoints is not ported yet (ROADMAP "
-                         "Queue 1); run with --random_init true")
+    """Config, the six G nets on args.device (epoch args.ckp's file in
+    args.ckp_dir, loaded strictly: params, batch_stats, spectral; or seeded
+    random weights with args.random_init), pipeline and engine."""
     cfg = (tiny_config(image_size=args.image_size) if args.tiny
            else Config(model=ModelConfig(image_size=args.image_size)))
     device = torch.device(args.device)
     models = build_models(cfg.model, device=device,
                           generator=torch.Generator(device=device).manual_seed(0))
+    if not args.random_init:
+        tree = read_checkpoint(args.ckp_dir, args.ckp)
+        for name, m in models.items():
+            load_jax_variables(m, net_variables(tree, name))
     pipe = InferencePipeline(cfg, models, use_efe=args.use_efe)
     return BatchedEngine(pipe, device, args.max_batch, args.batch_window_ms)
 

@@ -16,7 +16,8 @@ for a benchmark.  With LossConfig.pretrained_dir set, the teachers found
 there (vgg19.npz, vggface.npz, hopenet.npz: the JAX package's files) replace
 the seeded ones, as in the JAX package (losses/pretrained.py).  A parity run
 loads the JAX package's whole train state, teachers included, with
-convert.load_jax_train_state.
+convert.load_jax_train_state; train/checkpoint.py reads and writes the JAX
+package's epoch files.
 """
 from __future__ import annotations
 
@@ -40,6 +41,7 @@ class TrainState:
     g_opt: torch.optim.Adam
     d_opt: torch.optim.Adam
     step: int = 0
+    epoch: int = 0                  # as the JAX state's; train/checkpoint.py keeps it
 
 
 def contrastive_in_dim(cfg: Config) -> int:

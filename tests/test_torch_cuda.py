@@ -6,8 +6,9 @@ coordinate sets of facevae_tpu_torch/warp_inputs.py, the deterministic dx
 kernels (under torch.use_deterministic_algorithms, and against the
 fixed-point emulation of tests/torch_parity.py bit for bit), the wrappers'
 refusals, the tiny golden pipeline through
-the forward kernels, and tiny fp32 and bf16 training steps through all of
-them.  Every test skips without a CUDA device.
+the forward kernels, tiny fp32 and bf16 training steps through all of
+them, and an epoch checkpoint saved on the card, loaded on the CPU and
+back.  Every test skips without a CUDA device.
 
 This file imports no JAX, so it also runs on a machine without it:
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_cuda.py -q
@@ -634,6 +635,45 @@ def test_tiny_training_step_runs_through_the_kernels(dtype):
             for v in st.values()} == {torch.float32}
 
 
+def _state_tensors(state):
+    """Every tensor a checkpoint holds, by name, on the host."""
+    out = {f"{n}.{k}": v.cpu() for n, net in state.nets.items()
+           for k, v in net.state_dict().items()}
+    for key in ("g_opt", "d_opt"):
+        opt = getattr(state, key)
+        for i, p in enumerate(p for g in opt.param_groups for p in g["params"]):
+            out.update({f"{key}[{i}].{k}": v.cpu() for k, v in opt.state[p].items()})
+    return out
+
+
+def test_checkpoint_from_the_card_loads_on_the_cpu_and_back(tmp_path):
+    """A tiny_config() state stepped on the card, saved, loaded into a CPU
+    state, saved from there and loaded on the card again: every tensor
+    (Adam state included), epoch and step bit for bit, and the two files
+    byte for byte."""
+    from facevae_tpu_torch.train import checkpoint
+    cfg = tiny_config()
+    state = create_train_state(cfg, device="cuda")
+    g = torch.Generator(device="cuda").manual_seed(0)
+    batch = tuple(torch.rand(2, 64, 64, 3, generator=g, device="cuda") for _ in range(4))
+    train_step(state, batch, generator=g)
+    state.epoch = 3
+    a = checkpoint.save_checkpoint(str(tmp_path / "card"), state, 3)
+    cpu = checkpoint.load_checkpoint(str(tmp_path / "card"), 3, create_train_state(cfg, "cpu"))
+    b = checkpoint.save_checkpoint(str(tmp_path / "cpu"), cpu, 3)
+    back = checkpoint.load_checkpoint(str(tmp_path / "cpu"), 3, create_train_state(cfg, "cuda"))
+    want = _state_tensors(state)
+    assert len(want) > 2 * sum(1 for m in state.nets.values() for _ in m.parameters())
+    for other in (cpu, back):
+        got = _state_tensors(other)
+        assert set(got) == set(want)
+        assert all(torch.equal(got[k], want[k]) for k in want)
+        assert (other.epoch, other.step) == (3, 1)
+    assert all(p.is_cuda for m in back.nets.values() for p in m.parameters())
+    with open(a, "rb") as f, open(b, "rb") as h:
+        assert f.read() == h.read()
+
+
 def test_build_models_defaults_to_the_card():
     models = build_models(tiny_config().model, names=("generator",))
     assert all(p.is_cuda for p in models["generator"].parameters())
@@ -668,6 +708,31 @@ def test_probe_gather_kernels_equal_plain():
     assert torch.equal(out, p10.lane_gather_plain(data, lidx))
     assert p9.launches == {"probe_gather": 1, "probe_gather_plain": 1}
     assert p10.launches == {"probe_lane_gather": 1, "probe_lane_gather_plain": 1}
+
+
+@pytest.mark.parametrize("S, T, P, offset", [c + (0,) for c in p9.CASES]
+                         + [(3, 100, 77, 0), (2, 50, 6, 0), (4, 64, 32, 1)])
+def test_probe_gather_kernel_equals_plain_at_each_case(S, T, P, offset):
+    """Kernel 9 bit for bit at the probe's seven cases (its 16-byte form),
+    at a P that is not a multiple of 4 and at an idx 4 bytes past 16-byte
+    alignment (its scalar form), with out-of-range indices in the mix; the
+    launch floor's empty kernel takes the same arguments."""
+    table_np, idx_np = p9.inputs(S, T, P, seed=S + P)
+    idx_np[:, ::7] += T                                    # past the row: reads 0
+    idx_np[:, 3::11] -= 2 * T                              # negative: reads 0
+    table = torch.from_numpy(table_np).cuda()
+    idx = torch.from_numpy(np.concatenate([np.zeros(offset, np.int32), idx_np.ravel()]))
+    idx = idx.cuda()[offset:].view(S, P)
+    assert (idx.data_ptr() % 16 == 0) == (offset == 0)
+    p9.reset_launch_counts()
+    out = p9.gather_cuda(table, idx)
+    assert torch.equal(out, p9.gather_plain(table, idx))
+    assert torch.equal(out.cpu(), torch.from_numpy(np.where(
+        (idx_np >= 0) & (idx_np < T),
+        np.take_along_axis(table_np, np.clip(idx_np, 0, T - 1), -1), 0).astype(np.float32)))
+    assert p9.launches == {"probe_gather": 1, "probe_gather_plain": 1}
+    p9.gather_floor_cuda(table, idx)
+    torch.cuda.synchronize()
 
 
 @pytest.mark.parametrize("C", [1, 2, 4])
