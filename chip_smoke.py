@@ -5,7 +5,8 @@
 
 Phases, each fatal on failure (exit code 1, no result line):
   1. device   nvidia-smi name and power limit, torch / CUDA versions, the
-              numerics switches (TF32 off).
+              numerics switches (TF32 off), and whether imageio, PIL, cv2
+              and pandas import (printed only).
   2. build    nvcc-builds every kernel library from csrc/ (warp_fwd,
               warp_bwd, warp_grid, probe_gather, probe_warp), one nvcc per
               source, all started together.
@@ -67,7 +68,10 @@ Phases, each fatal on failure (exit code 1, no result line):
               torch.use_deterministic_algorithms(True) (strict: an op
               without a deterministic implementation raises, and the phase
               fails): held the same way, the dx kernels' deterministic
-              variants launched in place of the default ones.
+              variants launched in place of the default ones.  Then one
+              fp32 step with VAE sampling (train_vae, LossConfig.kl = 1)
+              on the card against the CPU's, with one eps on both: held as
+              the fp32 step, K nonzero.
   7. train    the full-width ModelConfig() training step, fp32, batch 8,
               seeded weights and teachers, through facevae_tpu_torch.bench:
               2 warm-up and 5 timed steps; every loss finite; per step each
@@ -88,6 +92,25 @@ Phases, each fatal on failure (exit code 1, no result line):
               into a fresh one: one step of each under
               torch.use_deterministic_algorithms(True), with the same TPS
               draw, gives the same losses and the same state bit for bit.
+     eval     the evaluation CLI, facevae_tpu_torch.evaluate.main, on the
+              card: a seeded ModelConfig() state saved as an epoch file, a
+              PNG tree (the port's writer) of 2 test videos x 17 frames at
+              256x256 and one train video; mode m at --eval_batch 8 (its
+              keys, 32 frames, finite values, per drive batch the
+              multi-grid and single-grid forward once, plain versions
+              never), modes s, i and r on one video (GIF89a bytes and frame
+              counts; one of each forward kernel per graph call); mode m's
+              frames/s and the ms per gif frame of r, s and i (second runs);
+              mode m's frames/s again over frames with a camera's grain
+              that PIL writes, where it imports (its row filters, which a
+              real dataset's frames carry, cost read_png more than the
+              filter 0 of the port's writer); kernels 1 and 4 at their
+              N = 1 calls (the inputs of one sample_expression call)
+              against their plain versions, timed as phase 3 times them,
+              with the launch grids their wrappers report.  Then
+              tiny_config(image_size=128)'s modes m, s and i on the card
+              against the same calls on the CPU (one epoch file, one tree,
+              the CPU-drawn eps): EVAL_TOL.
   8. train_bf16  the same step with ModelConfig(compute_dtype="bfloat16"):
               every loss finite, parameters and Adam state fp32; per step the
               multi-grid forward 3 times (MFE, Generator, TPS), its dgrid
@@ -112,12 +135,14 @@ Phases, each fatal on failure (exit code 1, no result line):
               its grid timed the same way; F.grid_sample also on the probes' own layouts
               (probe 7: volT's permuted view; probe 8: its fp32 source made
               from rows3 inside the timed call).
-Then a JSON line of kernel results, the card's name and power limit, and the
-last line {"ok": true, "device": {...}}.  There is no CPU fallback: without
-a CUDA device the script fails.
+Then a JSON line of kernel results (``launches_by_path`` per main path,
+``eval`` included; kernels 1 and 4 also ``eval_n1``), the eval rates, the
+card's name and power limit, and the last line {"ok": true, "device":
+{...}}.  There is no CPU fallback: without a CUDA device the script fails.
 """
 from __future__ import annotations
 
+import gc
 import json
 import statistics
 import subprocess
@@ -203,6 +228,11 @@ TRAIN_STEPS, TRAIN_WARMUP = 5, 2
 # through a few conv layers, amplified by the 0.1-temperature soft-argmax
 GOLDEN_TOL = 1e-4
 ROUNDS, CONCURRENCY, MAX_BATCH = 4, 16, 8
+# the eval phase: full-width test videos and frames each; the tiny card-vs-CPU
+# limits: mode m's L1 and MSE (absolute, plus their 1e-6 rounding) and PSNR (dB),
+# and gif frames in levels of 255 (fp32 differences of ~1e-5 cross a truncation)
+EVAL_VIDEOS, EVAL_FRAMES = 2, 17
+EVAL_TOL = {"mean": 1e-4 + 1e-6, "psnr_db": 0.01, "levels": 1}
 
 
 class PhaseError(RuntimeError):
@@ -244,7 +274,23 @@ def phase_device():
     print(f"[device] {card}; torch {torch.__version__}, CUDA {torch.version.cuda}, "
           f"{torch.cuda.get_device_name(0)} x{torch.cuda.device_count()}")
     print(f"[device] numerics {numerics.apply()}")
+    print(f"[device] optional packages (printed only: the evaluation path needs none of "
+          f"them): {json.dumps(optional_packages())}")
     return card
+
+
+def optional_packages():
+    """Whether each package that the JAX package's data path imports
+    (imageio, PIL, cv2, pandas) imports here: name -> version, or the
+    error."""
+    import importlib
+    out = {}
+    for name in ("imageio", "PIL", "cv2", "pandas"):
+        try:
+            out[name] = getattr(importlib.import_module(name), "__version__", "imports")
+        except Exception as e:                    # printed, never fatal
+            out[name] = f"no ({type(e).__name__}: {e})"
+    return out
 
 
 def phase_build():
@@ -677,21 +723,28 @@ def tiny_step_inputs(seed=0):
     return rs, batch, tp
 
 
-def tiny_step(device, images, dtype, tp, seed=0):
+def tiny_step(device, images, dtype, tp, seed=0, vae_eps=None):
     """One tiny_config(compute_dtype=dtype) training step of the port on
     ``device`` from numpy_weights(seed): ({loss: value}, {net: {param:
-    gradient}}), numpy."""
+    gradient}}), numpy.  With vae_eps (numpy [2, 16]) the step samples the
+    driving frame's VAE with that eps (TrainConfig.train_vae, LossConfig.kl
+    = 1)."""
+    import dataclasses
     import torch
     from facevae_tpu_torch.config import tiny_config
     from facevae_tpu_torch.models import D_MODEL_NAMES, G_MODEL_NAMES
     from facevae_tpu_torch.ops.tps import TransformParams
     from facevae_tpu_torch.train import build_all_modules, create_train_state, train_step
     cfg = tiny_config(compute_dtype=dtype)
+    if vae_eps is not None:
+        cfg = dataclasses.replace(cfg, train=dataclasses.replace(cfg.train, train_vae=True),
+                                  loss=dataclasses.replace(cfg.loss, kl=1.0))
+        vae_eps = torch.from_numpy(vae_eps).to(device)
     nets = numpy_weights(build_all_modules(cfg, device), seed)
     state = create_train_state(cfg, device, nets)
     out = train_step(state, [torch.from_numpy(b).to(device) for b in images],
                      transform_params=TransformParams(*(torch.from_numpy(a).to(device)
-                                                        for a in tp)))
+                                                        for a in tp)), vae_eps=vae_eps)
     losses = {k: float(v) for k, v in {**out["losses_g"], **out["losses_d"]}.items()}
     grads = {n: {k: p.grad.detach().cpu().numpy() for k, p in state.nets[n].named_parameters()}
              for n in G_MODEL_NAMES + D_MODEL_NAMES}
@@ -782,6 +835,27 @@ def phase_train_tiny():
                 det_paths[f"train_tiny_det_{dtype}"] = launches
             check(not bad, f"{tag} card step differs from the CPU step: {bad[:8]}")
             check(launches == _want(launches, dtype, 1, det), f"tiny {tag} step launches {launches}")
+    # VAE sampling (train_vae, K = the KL term) with one eps on both devices
+    eps = rs.randn(2, 16).astype(np.float32)
+    vae_cpu = tiny_step("cpu", batch, "float32", tp, vae_eps=eps)
+    vae_nudged = tiny_step("cpu", nudged, "float32", tp, vae_eps=eps)
+    fast_warp.reset_launch_counts()
+    losses, grads = tiny_step("cuda", batch, "float32", tp, vae_eps=eps)
+    torch.cuda.synchronize()
+    launches = dict(fast_warp.launches)
+    bad, worst = held_step(
+        losses, grads, *vae_cpu,
+        lambda kind, n, k: (_distance(vae_nudged[0][n], vae_cpu[0][n]) if kind == "loss"
+                            else _distance(vae_nudged[1][n][k], vae_cpu[1][n][k])),
+        SPREAD, TRAIN_TOL)
+    print(f"[train_tiny] float32 train_vae: card vs CPU step, same eps: losses "
+          + ", ".join(f"{k} {v:.5f}/{vae_cpu[0][k]:.5f}" for k, v in losses.items()))
+    print(f"[train_tiny] float32 train_vae: {sum(len(g) for g in grads.values())} gradient "
+          f"leaves and {len(losses)} losses held; worst err/limit {worst:.3f}; card launches "
+          f"{launches}")
+    check(not bad, f"train_vae card step differs from the CPU step: {bad[:8]}")
+    check(losses["K"] > 0 and vae_cpu[0]["K"] > 0, f"train_vae K loss {losses['K']} is 0")
+    check(launches == _want(launches, "float32", 1), f"tiny train_vae step launches {launches}")
     return det_paths
 
 
@@ -928,6 +1002,272 @@ def phase_checkpoint(card):
     return {"bytes": nbytes, "save_s": save_s, "load_s": load_s}
 
 
+def gif_frame_count(data):
+    """(the header, the number of image descriptors) of GIF bytes, walking
+    its blocks."""
+    check(data[:6] in (b"GIF87a", b"GIF89a"), f"not a GIF: {data[:6]!r}")
+    pos, frames = 13, 0
+    if data[10] & 0x80:
+        pos += 3 << ((data[10] & 7) + 1)
+
+    def skip_blocks(p):
+        while data[p]:
+            p += data[p] + 1
+        return p + 1
+
+    while data[pos] != 0x3B:
+        if data[pos] == 0x2C:
+            packed = data[pos + 9]
+            pos += 10 + ((3 << ((packed & 7) + 1)) if packed & 0x80 else 0)
+            pos = skip_blocks(pos + 1)
+            frames += 1
+        elif data[pos] == 0x21:
+            pos = skip_blocks(pos + 2)
+        else:
+            raise PhaseError(f"GIF block {data[pos]:#x} at {pos}")
+    return data[:6], frames
+
+
+def _eval_argv(ckp_dir, source, driving, *extra):
+    return ["--ckp_dir", ckp_dir, "--ckp", "1", "--source", source, "--driving", driving,
+            *extra]
+
+
+def _eval_main(argv):
+    """facevae_tpu_torch.evaluate.main(argv), its printed lines prefixed
+    (mode m prints a JSON line of its own)."""
+    import contextlib
+    import io
+    from facevae_tpu_torch import evaluate
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        out = evaluate.main(argv)
+    for line in buf.getvalue().splitlines():
+        print(f"[eval]   main: {line}")
+    return out
+
+
+def _hold_n1(pipe, img):
+    """Kernels 1 and 4 at their N = 1 calls: the inputs MFE's and the
+    Generator's warps get in one full-width sample_expression call (recorded
+    with bench_warp.recording), each kernel against its plain version, timed
+    as phase 3 times it, with F.grid_sample's time, the bound and the
+    launch grid the wrapper's launch code reported (fast_warp.launch_grids)."""
+    import torch
+    from facevae_tpu_torch.bench_warp import library_calls, recording
+    from facevae_tpu_torch.models import generator as gen_mod, mfe as mfe_mod
+    from facevae_tpu_torch.ops import fast_warp as fw
+    from facevae_tpu_torch.probes.common import graph_ms
+    from facevae_tpu_torch.warp_inputs import normalized
+    with recording(mfe_mod, "warp_multi_pixel") as m_seen, \
+            recording(gen_mod, "warp_single") as g_seen:
+        pipe.sample_expression(img, 1.0, generator=torch.Generator().manual_seed(0))
+    # clones made outside inference mode: plain tensors the timed graphs may hold
+    x, cgx, cgy, cgz, spatial = (a.clone() if torch.is_tensor(a) else a for a in m_seen[0])
+    xg, grid = (a.clone() for a in g_seen[0])
+    D, H, W = spatial
+    K1 = cgx.shape[1]
+    coords = [cgx, cgy, cgz]
+    cases = {
+        "warp_fwd": (x, K1, lambda: fw.warp_multi_pixel_cuda(x, cgx, cgy, cgz, spatial),
+                     lambda: fw.warp_multi_pixel_plain(x, cgx, cgy, cgz, spatial),
+                     normalized(coords, D, H, W)),
+        "grid_fwd": (xg, 1, lambda: fw.grid_sample_3d_cuda(xg, grid, 1),
+                     lambda: fw.grid_sample_3d_plain(xg, grid, 1), grid)}
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    rows = {}
+    for name, (src, k1, kernel, plain, ngrid) in cases.items():
+        N, C = src.shape[0], src.shape[-1]
+        check(N == 1, f"{name}: the sample_expression call gave N={N}, not 1")
+        fw.launch_grids.pop(name, None)
+        out, ref = kernel(), plain()
+        torch.cuda.synchronize()
+        check(name in fw.launch_grids, f"{name} at N = 1: no launch grid reported")
+        gx, gy, gz, threads = fw.launch_grids[name]
+        blocks = gx * gy * gz
+        err = (out - ref).abs().max().item()
+        scale = ref.abs().max().item()
+        gout = torch.zeros(N * k1, D, H, W, C, device=src.device)
+        bound, bound_by = _bound_ms("fwd", N, D, H, W, C, k1, src.element_size())
+        rows[name] = dict(err=err, scale=scale, tol=KERNEL_TOL["fwd"]["float32"] * scale,
+                          ms=graph_ms(kernel), plain_ms=cuda_ms(plain),
+                          library_ms=graph_ms(library_calls(src, ngrid, gout)["fwd"]),
+                          bound_ms=bound, bound_by=bound_by,
+                          shape=tuple(src.shape), K1=k1)
+        r = rows[name]
+        print(f"[eval] {name} at N = 1 (x[{','.join(map(str, src.shape))}] K1={k1}, from "
+              f"sample_expression): max|err| {err:.3e} (limit {r['tol']:.3e}, max|ref| "
+              f"{scale:.3f}); device {r['ms']:.4f} ms, plain {r['plain_ms']:.4f}, "
+              f"F.grid_sample {r['library_ms']:.4f}, bound {bound:.4f} ms ({bound_by}); "
+              f"launch grid ({gx}, {gy}, {gz}) = {blocks} blocks of {threads} threads "
+              f"on {sms} SMs")
+        check(torch.isfinite(out).all().item() and out.shape == ref.shape,
+              f"{name} at N = 1: shape {tuple(out.shape)} or non-finite")
+        check(err <= r["tol"], f"{name} at N = 1: {err:.3e} > {r['tol']:.3e}")
+        check(blocks >= sms, f"{name} at N = 1: {blocks} blocks leave SMs idle of {sms}")
+    return rows
+
+
+def _read_ms(root):
+    """The host's ms a frame to read the test videos of a synthetic tree."""
+    import os
+    from facevae_tpu_torch.data.dataset import read_video
+    t0 = time.perf_counter()
+    names = sorted(os.listdir(f"{root}/test"))
+    n = sum(len(read_video(f"{root}/test/{name}")) for name in names)
+    return (time.perf_counter() - t0) * 1e3 / n
+
+
+def phase_eval(card):
+    """The evaluation CLI (facevae_tpu_torch.evaluate.main) on the card:
+    ModelConfig() fp32 from an epoch file over a PNG dataset tree, modes m,
+    s, i and r, their launches and gifs, mode m again over a tree of frames
+    with a camera's grain that PIL writes (where it imports: its row filters
+    are what a real dataset's frames carry, and cost read_png more than
+    filter 0), kernels 1 and 4 at N = 1; then
+    tiny_config(image_size=128)'s modes m, s and i on the card against the
+    same calls on the CPU."""
+    import math
+    import tempfile
+    import numpy as np
+    import torch
+    from facevae_tpu_torch import evaluate
+    from facevae_tpu_torch.config import Config, tiny_config
+    from facevae_tpu_torch.data.synthetic import smooth_frames, write_dataset
+    from facevae_tpu_torch.ops import fast_warp
+    from facevae_tpu_torch.train import checkpoint, create_train_state
+    device = torch.device("cuda")
+    tmp = tempfile.TemporaryDirectory()
+    try:
+        root, ckp = f"{tmp.name}/data", f"{tmp.name}/ckp"
+        state = create_train_state(Config(), device)
+        t0 = time.perf_counter()
+        checkpoint.save_checkpoint(ckp, state, 1)
+        del state
+        torch.cuda.empty_cache()
+        size = Config().model.image_size
+        write_dataset(root, size, EVAL_VIDEOS, EVAL_FRAMES)
+        print(f"[eval] ModelConfig() fp32 epoch file and {EVAL_VIDEOS} test videos x "
+              f"{EVAL_FRAMES} PNG frames at {size}x{size}: {time.perf_counter() - t0:.1f} s")
+        video = f"{root}/test/id0#clip0"
+        fast_warp.reset_launch_counts()
+        t0 = time.perf_counter()
+        out = _eval_main(_eval_argv(ckp, "m", root, "--eval_batch", str(N_BATCH)))
+        torch.cuda.synchronize()
+        m_s = time.perf_counter() - t0
+        counts = dict(fast_warp.launches)
+        n_driven = EVAL_VIDEOS * (EVAL_FRAMES - 1)
+        batches = EVAL_VIDEOS * math.ceil((EVAL_FRAMES - 1) / N_BATCH)
+        keys = {"metric", "recon_l1", "recon_mse", "psnr_db", "frames", "videos", "l1_dist",
+                "psnr_dist", "per_video"}
+        check(set(out) == keys, f"mode m keys {sorted(out)}")
+        check(out["frames"] == n_driven and out["videos"] == EVAL_VIDEOS,
+              f"mode m: {out['frames']} frames of {out['videos']} videos")
+        check(all(math.isfinite(out[k]) for k in ("recon_l1", "recon_mse", "psnr_db")),
+              f"mode m: non-finite {out}")
+        want = {**dict.fromkeys(counts, 0), "warp_fwd": batches, "grid_fwd": batches}
+        print(f"[eval] mode m: {out['frames']} frames of {out['videos']} videos in {batches} "
+              f"drive batches of {N_BATCH}: recon_l1 {out['recon_l1']}, psnr {out['psnr_db']} "
+              f"dB; main() {m_s:.2f} s (reading the epoch file and building the nets "
+              f"included); launches {counts}")
+        check(counts == want, f"mode m launches {counts}, want {want} (per drive batch "
+                              "the multi-grid and single-grid forward once, no plain version)")
+        gif_frames = {}
+        for mode, n_frames in (("s", EVAL_FRAMES), ("i", EVAL_FRAMES), ("r", EVAL_FRAMES - 1)):
+            path = f"{tmp.name}/{mode}.gif"
+            _eval_main(_eval_argv(ckp, mode, video, "--output", path))
+            header, n = gif_frame_count(Path(path).read_bytes())
+            check(header == b"GIF89a" and n == n_frames,
+                  f"mode {mode}: gif {header!r} of {n} frames, want {n_frames}")
+            gif_frames[mode] = n
+        torch.cuda.synchronize()
+        counts = dict(fast_warp.launches)
+        calls = batches + sum(gif_frames.values())
+        want = {**dict.fromkeys(counts, 0), "warp_fwd": calls, "grid_fwd": calls}
+        print(f"[eval] modes s, i, r: gifs (GIF89a) of {gif_frames} frames; eval path launches "
+              f"{counts}")
+        check(counts == want, f"eval path launches {counts}, want {want} (one multi-grid and "
+                              "one single-grid forward per graph call)")
+
+        args = evaluate.parse_args(_eval_argv(ckp, "m", root))
+        pipe = evaluate.build_pipeline(args)
+        evaluate.eval_metrics(pipe, root, size, 0, 90, batch=N_BATCH)       # warm
+        t0 = time.perf_counter()
+        evaluate.eval_metrics(pipe, root, size, 0, 90, batch=N_BATCH)
+        m_fps = n_driven / (time.perf_counter() - t0)
+        rates = {"m_frames_per_s": m_fps}
+        for mode in ("r", "s", "i"):
+            args = evaluate.parse_args(_eval_argv(ckp, mode, video))
+            t0 = time.perf_counter()
+            frames = evaluate.gif_frames(pipe, args)
+            rates[f"{mode}_ms_per_frame"] = (time.perf_counter() - t0) * 1e3 / len(frames)
+        rates["png_read_ms_per_frame"] = _read_ms(root)
+        print(f"[eval] {card}: ModelConfig() fp32, mode m {m_fps:.2f} frames/s at batch "
+              f"{N_BATCH} over write_png's frames (filter 0; eval_metrics, second run, PNG "
+              f"reads included); ms per gif frame (gif_frames, second run, PNG reads "
+              f"included, the gif encoding not): r {rates['r_ms_per_frame']:.1f}, s "
+              f"{rates['s_ms_per_frame']:.1f}, i {rates['i_ms_per_frame']:.1f}; the host's "
+              f"read_png of a {size}x{size} filter-0 frame "
+              f"{rates['png_read_ms_per_frame']:.2f} ms")
+        try:
+            from PIL import Image
+        except ImportError:
+            print("[eval] PIL does not import: no mode m rate over PIL-written frames")
+        else:
+            pil_root = write_dataset(f"{tmp.name}/pil_data", size, EVAL_VIDEOS, EVAL_FRAMES,
+                                     write=lambda path, img: Image.fromarray(img).save(path),
+                                     noise=8)
+            t0 = time.perf_counter()
+            out = evaluate.eval_metrics(pipe, pil_root, size, 0, 90, batch=N_BATCH)
+            rates["m_frames_per_s_pil"] = n_driven / (time.perf_counter() - t0)
+            rates["pil_png_read_ms_per_frame"] = _read_ms(pil_root)
+            check(out["frames"] == n_driven and math.isfinite(out["recon_l1"]),
+                  f"mode m over PIL's frames: {out['frames']} frames, l1 {out['recon_l1']}")
+            print(f"[eval] {card}: ModelConfig() fp32, mode m {rates['m_frames_per_s_pil']:.2f} "
+                  f"frames/s at batch {N_BATCH} over frames with +-8 levels of grain that "
+                  f"PIL {Image.__version__} writes (its own row filters; eval_metrics, the "
+                  f"nets warm, PNG reads included); the host's read_png of one such frame "
+                  f"{rates['pil_png_read_ms_per_frame']:.2f} ms")
+        first = torch.from_numpy(np.asarray(smooth_frames(1, size, 0)[0], np.float32)[None]
+                                 / 255).to(device)
+        n1 = _hold_n1(pipe, first)
+        del pipe
+        torch.cuda.empty_cache()
+
+        # tiny_config(image_size=128): the card against the CPU, same file, frames and eps
+        tiny_root, tiny_ckp = f"{tmp.name}/tiny_data", f"{tmp.name}/tiny_ckp"
+        checkpoint.save_checkpoint(tiny_ckp, create_train_state(tiny_config(image_size=128),
+                                                                "cpu"), 1)
+        write_dataset(tiny_root, 128, 2, 5)
+        tiny = ["--tiny", "true", "--image_size", "128", "--eval_batch", "2"]
+        got = {}
+        for dev in ("cpu", "cuda"):
+            m = _eval_main(_eval_argv(tiny_ckp, "m", tiny_root, "--device", dev, *tiny))
+            got[dev] = {"m": m}
+            for mode in ("s", "i"):
+                args = evaluate.parse_args(_eval_argv(tiny_ckp, mode, f"{tiny_root}/test/"
+                                                      "id0#clip0", "--device", dev, *tiny))
+                got[dev][mode] = evaluate.gif_frames(evaluate.build_pipeline(args), args)
+        a, b = got["cuda"]["m"], got["cpu"]["m"]
+        diffs = {k: abs(a[k] - b[k]) for k in ("recon_l1", "recon_mse", "psnr_db")}
+        levels = {mode: max(int(np.abs(x.astype(np.int16) - y).max())
+                            for x, y in zip(got["cuda"][mode], got["cpu"][mode]))
+                  for mode in ("s", "i")}
+        print(f"[eval] tiny_config(image_size=128) card vs CPU: mode m {diffs} (limits "
+              f"{EVAL_TOL}); modes s, i: gif frames within {levels} levels (limit "
+              f"{EVAL_TOL['levels']})")
+        check(a["frames"] == b["frames"] and a["videos"] == b["videos"], f"tiny m: {a} vs {b}")
+        for k, d in diffs.items():
+            check(d <= EVAL_TOL["psnr_db" if k == "psnr_db" else "mean"], f"tiny m {k}: {d}")
+        for mode in ("s", "i"):
+            check(len(got["cuda"][mode]) == len(got["cpu"][mode]) > 0
+                  and levels[mode] <= EVAL_TOL["levels"],
+                  f"tiny mode {mode}: {levels[mode]} levels apart")
+    finally:
+        tmp.cleanup()
+    return counts, n1, rates
+
+
 def _probe_row(name, out, ref, r, plain_ms, site):
     """One kernel-vs-plain comparison of phase 9 (out, ref: the two results
     on the same inputs; r: the probe's run() figures)."""
@@ -1067,8 +1407,14 @@ def main() -> int:
                          ("train_tiny", phase_train_tiny),
                          ("train", lambda: _train(card, "float32")),
                          ("checkpoint", lambda: phase_checkpoint(card)),
+                         ("eval", lambda: phase_eval(card)),
                          ("train_bf16", lambda: _train(card, "bfloat16")),
                          ("probes", phase_probes)):
+            # a train state lives in reference cycles, which only the
+            # collector frees: collect them, so that a phase's peak memory
+            # holds no tensor of the phase before
+            gc.collect()
+            torch.cuda.empty_cache()
             t0 = time.perf_counter()
             out = fn()
             phase_s[name] = round(time.perf_counter() - t0, 1)
@@ -1078,6 +1424,8 @@ def main() -> int:
                 paths[name] = out                  # each main path's launch counts
             elif name == "train_tiny":
                 det_paths = out                    # the deterministic mode's steps
+            elif name == "eval":
+                paths["eval"], eval_n1, eval_rates = out
             elif name == "probes":
                 probe_rows, probe_counts = out
     except PhaseError as e:
@@ -1099,6 +1447,9 @@ def main() -> int:
             "bound_ms": sum(r["bound_ms"] for r in fp32), "bound_by": fp32[0]["bound_by"],
             "library_ms": sum(r["library_ms"] for r in fp32),
             "sites": [r["site"] for r in fp32]})
+        if name in eval_n1:            # kernels 1 and 4 at the eval path's N = 1 calls
+            kernels[-1]["eval_n1"] = {k: eval_n1[name][k] for k in (
+                "err", "ms", "plain_ms", "library_ms", "bound_ms", "bound_by")}
     for name, (source, replaces) in PROBE_KERNELS.items():
         # probe 8: its default mode (banded) at both thetas; probe 9: its seven cases
         mine = [r for r in probe_rows if r["name"] == name and r.get("mode", "banded") == "banded"]
@@ -1113,6 +1464,7 @@ def main() -> int:
         if name == "probe_gather":
             kernels[-1]["floor_ms"] = sum(r["floor_ms"] for r in mine)
     print(json.dumps({"kernels": kernels}))
+    print(f"[eval] {json.dumps({k: round(v, 3) for k, v in eval_rates.items()})}")
     print(f"[done] {time.perf_counter() - t_all:.1f} s; phases {json.dumps(phase_s)}")
     print(smi())
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -58,6 +58,7 @@ if __name__ == "__main__":
     sys.path.pop(0)   # run by path: this directory's modules would shadow top-level names
 
 import argparse
+import contextlib
 import hashlib
 import importlib.util
 import json
@@ -97,21 +98,13 @@ def _inputs_module():
     return _module("warp_inputs.py")
 
 
-def record_first_call(cfg, module, name, device="cuda", batch=N_BATCH):
-    """Run the first training step of ``cfg`` at ``batch`` on ``device``
-    (seeded weights, as create_train_state builds them, and seeded random
-    images, as facevae_tpu_torch/bench.py builds the step) with
-    ``module.<name>`` patched to record the arguments of its first call;
-    returns (those arguments, tensors detached, contiguous and cloned; the
-    step's output).  The patch calls the real function, so the step is the
-    one it would be, and is undone when the step returns or raises."""
+@contextlib.contextmanager
+def recording(module, name):
+    """``module.<name>`` patched to record the arguments of its first call
+    (tensors detached, contiguous and cloned) into the list this yields;
+    the patch calls the real function and is undone on exit, also when the
+    body raises."""
     import torch
-    from facevae_tpu_torch.train import create_train_state, train_step
-    size = cfg.model.image_size
-    state = create_train_state(cfg, device=torch.device(device))
-    g = torch.Generator(device=device).manual_seed(0)
-    images = tuple(torch.rand(batch, size, size, 3, generator=g, device=device)
-                   for _ in range(4))
     seen = []
     real = getattr(module, name)
 
@@ -123,9 +116,29 @@ def record_first_call(cfg, module, name, device="cuda", batch=N_BATCH):
 
     setattr(module, name, record)
     try:
-        out = train_step(state, images, generator=g)
+        yield seen
     finally:
         setattr(module, name, real)
+
+
+def record_first_call(cfg, module, name, device="cuda", batch=N_BATCH):
+    """Run the first training step of ``cfg`` at ``batch`` on ``device``
+    (seeded weights, as create_train_state builds them, and seeded random
+    images, as facevae_tpu_torch/bench.py builds the step) with
+    ``module.<name>`` patched to record the arguments of its first call;
+    returns (those arguments, tensors detached, contiguous and cloned; the
+    step's output).  The patch calls the real function, so the step is the
+    one it would be, and is undone when the step returns or raises
+    (``recording``)."""
+    import torch
+    from facevae_tpu_torch.train import create_train_state, train_step
+    size = cfg.model.image_size
+    state = create_train_state(cfg, device=torch.device(device))
+    g = torch.Generator(device=device).manual_seed(0)
+    images = tuple(torch.rand(batch, size, size, 3, generator=g, device=device)
+                   for _ in range(4))
+    with recording(module, name) as seen:
+        out = train_step(state, images, generator=g)
     del state
     if torch.device(device).type == "cuda":
         torch.cuda.empty_cache()

@@ -200,6 +200,17 @@ __device__ __forceinline__ bool inside(float j, int size) {
   return j >= 0.f && j <= (float)(size - 1);
 }
 
+// Writes a launch's grid (x, y, z) and its threads a block to out[0..3],
+// where out is not null: the wrapper reads back the grid it launched.
+inline void record_launch(unsigned* out, dim3 grid, int threads) {
+  if (out) {
+    out[0] = grid.x;
+    out[1] = grid.y;
+    out[2] = grid.z;
+    out[3] = (unsigned)threads;
+  }
+}
+
 // Calls f(static_cast<T*>(nullptr), std::integral_constant<int, CPT>{}) for
 // dtype 0 = fp32 / 1 = bf16 and the channels per vector cpt; returns the
 // cudaError_t of the launch f makes, or cudaErrorInvalidValue for a pair no

@@ -254,11 +254,13 @@ int tile_voxels(int rowbytes) {
 
 template <typename T, int CPT>
 int launch(const void* x, const float* gx, const float* gy, const float* gz, void* out, int N,
-           int D, int H, int W, int C, int K1, int NV, cudaStream_t stream) {
+           int D, int H, int W, int C, int K1, int NV, cudaStream_t stream,
+           unsigned* launched) {
   if (K1 == 1) {
     if constexpr (CPT == 1) {
       if (C > 1 && C <= kPixelChannels) {
         const dim3 grid((unsigned)((NV + kThreads - 1) / kThreads), (unsigned)N);
+        record_launch(launched, grid, kThreads);
         warp_fwd_pixel_kernel<T><<<grid, kThreads, kThreads * C * sizeof(T), stream>>>(
             static_cast<const T*>(x), gx, gy, gz, static_cast<T*>(out), D, H, W, C, NV);
         return (int)cudaGetLastError();
@@ -266,6 +268,7 @@ int launch(const void* x, const float* gx, const float* gy, const float* gz, voi
     }
     const long long threads = (long long)NV * (C / CPT);
     const dim3 grid((unsigned)((threads + kThreads - 1) / kThreads), (unsigned)N);
+    record_launch(launched, grid, kThreads);
     warp_fwd_kernel<T, CPT><<<grid, kThreads, 0, stream>>>(
         static_cast<const T*>(x), gx, gy, gz, static_cast<T*>(out), D, H, W, C, NV);
     return (int)cudaGetLastError();
@@ -282,6 +285,7 @@ int launch(const void* x, const float* gx, const float* gy, const float* gz, voi
     if (e != cudaSuccess) return (int)e;
   }
   const dim3 grid((unsigned)((NV + vt - 1) / vt), (unsigned)N);
+  record_launch(launched, grid, kThreads);
   kernel<<<grid, kThreads, (size_t)smem, stream>>>(static_cast<const T*>(x), gx, gy, gz,
                                                    static_cast<T*>(out), D, H, W, C, K1, NV, vt,
                                                    stride, copy_unit(rowbytes, stride));
@@ -292,14 +296,17 @@ int launch(const void* x, const float* gx, const float* gy, const float* gz, voi
 
 // dtype: 0 = fp32, 1 = bf16.  cpt: channels per thread (C % cpt == 0, and
 // cpt * sizeof(T) <= 16 with x and out aligned to it).  Returns the
-// cudaError_t of the launch (0 = success).
+// cudaError_t of the launch (0 = success).  launched (may be null): the
+// launch's grid x, y, z and threads a block are written there.
 extern "C" int facevae_warp_fwd(const void* x, const float* gx, const float* gy,
                                 const float* gz, void* out, int N, int D, int H, int W, int C,
-                                int K1, int NV, int dtype, int cpt, void* stream) {
+                                int K1, int NV, int dtype, int cpt, void* stream,
+                                unsigned* launched) {
   int err = (int)cudaSuccess;
   const int dispatched = facevae_warp::dispatch(dtype, cpt, [&](auto t, auto c) {
     err = launch<std::remove_pointer_t<decltype(t)>, decltype(c)::value>(
-        x, gx, gy, gz, out, N, D, H, W, C, K1, NV, static_cast<cudaStream_t>(stream));
+        x, gx, gy, gz, out, N, D, H, W, C, K1, NV, static_cast<cudaStream_t>(stream),
+        launched);
   });
   return err != (int)cudaSuccess ? err : dispatched;
 }

@@ -286,15 +286,17 @@ dim3 blocks(long long threads, int G) {
 // dtype: 0 = fp32, 1 = bf16 (x, out and gout).  cpt: channels per vector
 // (C % cpt == 0, cpt * sizeof(T) <= 16, x / out / gout / dx aligned to it).
 // G = N * gps grids of NV voxels each.  Each returns the cudaError_t of its
-// launch (0 = success).
+// launch (0 = success).  facevae_grid_fwd's launched (may be null): the
+// launch's grid x, y, z and threads a block are written there.
 extern "C" int facevae_grid_fwd(const void* x, const float* grid, void* out, int D, int H,
                                 int W, int C, int gps, int G, int NV, int dtype, int cpt,
-                                void* stream) {
+                                void* stream, unsigned* launched) {
   return dispatch(dtype, cpt, [&](auto t, auto c) {
     using T = std::remove_pointer_t<decltype(t)>;
     constexpr int CPT = decltype(c)::value;
-    grid_fwd_kernel<T, CPT><<<blocks((long long)NV * (C / CPT), G), kThreads, 0,
-                              static_cast<cudaStream_t>(stream)>>>(
+    const dim3 b = blocks((long long)NV * (C / CPT), G);
+    record_launch(launched, b, kThreads);
+    grid_fwd_kernel<T, CPT><<<b, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
         static_cast<const T*>(x), grid, static_cast<T*>(out), D, H, W, C, gps, NV);
   });
 }

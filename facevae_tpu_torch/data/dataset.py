@@ -1,0 +1,171 @@
+"""Frame datasets for evaluation (a copy of facevae_tpu/data/dataset.py, not
+an import of it: the port imports nothing of the JAX package).
+
+- FramesDataset: videos are PNG-frame directories (or .mp4 / .gif files);
+  the train / test split is the root's train/ and test/ subdirectories, or
+  else an 80/20 split shuffled by RandomState(random_seed).  With
+  is_train=False an item is the whole video, [T,H,W,3] float32 in [0,1].
+  is_train=True (two random frames and their augmented copies) needs the
+  training augmentation, which is not ported yet: it raises
+  NotImplementedError (ROADMAP Queue 1, item 2).
+- DatasetRepeater: the I/O amortization wrapper.
+- PairedDataset: animation pairs from a random index grid
+  (RandomState(seed)), or from the dataset's pairs CSV (columns ``source``,
+  ``driving``), read with the csv module: rows whose two names are both
+  videos of the split, in file order, as pandas' isin filter keeps them.
+
+PNG frames go through the port's own decoder (data/image_io.read_png): the
+card's machine has no imageio, which the JAX package reads frames with.
+Other frame formats and .mp4 / .gif videos go through imageio where it
+imports, and raise an ImportError that names it where it does not.
+"""
+from __future__ import annotations
+
+import csv
+import os
+
+import numpy as np
+
+from facevae_tpu_torch.data.image_io import PNG_SIGNATURE, read_png
+
+
+def _imageio(what: str):
+    try:
+        import imageio.v2 as imageio
+    except ImportError as e:
+        raise ImportError(f"reading {what} needs imageio, which is not installed; "
+                          "the port reads PNG frames without it") from e
+    return imageio
+
+
+def _imread_raw(path: str) -> np.ndarray:
+    with open(path, "rb") as fh:
+        png = fh.read(len(PNG_SIGNATURE)) == PNG_SIGNATURE
+    return to_rgb(read_png(path) if png else np.asarray(_imageio(path).imread(path)))
+
+
+def to_rgb(img: np.ndarray) -> np.ndarray:
+    """A decoded image with grey stacked to 3 channels and alpha dropped."""
+    if img.ndim == 2:
+        img = np.stack([img] * 3, axis=-1)
+    if img.shape[-1] == 4:
+        img = img[..., :3]
+    return img
+
+
+def _imread_float(path: str) -> np.ndarray:
+    img = _imread_raw(path)
+    if img.dtype == np.uint8:
+        return img.astype(np.float32) / 255.0
+    return img.astype(np.float32)
+
+
+def read_video(name: str, frame_shape=(256, 256, 3)) -> np.ndarray:
+    """Read a video: PNG-frame dir, .mp4 or .gif (reference dataset.py:13-34)."""
+    if os.path.isdir(name):
+        frames = sorted(os.listdir(name))
+        return np.stack([_imread_float(os.path.join(name, f)) for f in frames])
+    if name.lower().endswith((".gif", ".mp4")):
+        video = to_rgb(np.asarray(_imageio(name).mimread(name, memtest=False)))
+        if video.dtype == np.uint8:
+            return video.astype(np.float32) / 255.0
+        return video.astype(np.float32)
+    raise ValueError(f"Unknown file extension: {name}")
+
+
+class FramesDataset:
+    def __init__(self, root_dir: str, frame_shape=(256, 256, 3), is_train: bool = True,
+                 random_seed: int = 0, pairs_list=None):
+        if is_train:
+            raise NotImplementedError(
+                "FramesDataset(is_train=True) needs the training augmentation, which is "
+                "not ported yet (ROADMAP Queue 1, item 2); evaluation reads is_train=False")
+        self.root_dir = root_dir
+        self.frame_shape = tuple(frame_shape)
+        self.pairs_list = pairs_list
+        self.is_train = is_train
+        videos = sorted(os.listdir(root_dir))
+        if os.path.exists(os.path.join(root_dir, "train")):
+            assert os.path.exists(os.path.join(root_dir, "test")), "train/ without test/"
+            self.videos = sorted(os.listdir(os.path.join(root_dir, "test")))
+            self.root_dir = os.path.join(root_dir, "test")
+        else:
+            rng = np.random.RandomState(random_seed)
+            videos = list(videos)
+            rng.shuffle(videos)
+            self.videos = videos[:max(1, int(0.2 * len(videos)))]
+
+    def __len__(self):
+        return len(self.videos)
+
+    def __getitem__(self, idx: int):
+        video = read_video(os.path.join(self.root_dir, self.videos[idx]), self.frame_shape)
+        return np.asarray(video, np.float32)         # [T,H,W,3] for eval
+
+
+class DatasetRepeater:
+    """I/O amortization (reference dataset.py:138-151)."""
+
+    def __init__(self, dataset, num_repeats: int = 75):
+        self.dataset = dataset
+        self.num_repeats = num_repeats
+
+    def __len__(self):
+        return self.num_repeats * len(self.dataset)
+
+    def __getitem__(self, idx):
+        return self.dataset[idx % len(self.dataset)]
+
+
+def _csv_names(rows, column):
+    """A CSV column as pandas.read_csv reads it, for isin against names: a
+    column of numbers only is numeric there and matches no name (None); an
+    empty field is NaN and matches nothing (None)."""
+    values = [r[column] or None for r in rows]
+
+    def number(v):
+        try:
+            float(v)
+        except (TypeError, ValueError):
+            return False
+        return True
+
+    if all(v is None or number(v) for v in values):
+        return [None] * len(values)
+    return values
+
+
+class PairedDataset:
+    """Animation pairs from a CSV or a random index grid
+    (reference dataset.py:154-193)."""
+
+    def __init__(self, initial_dataset: FramesDataset, number_of_pairs: int, seed: int = 0):
+        self.initial_dataset = initial_dataset
+        pairs_list = initial_dataset.pairs_list
+        rng = np.random.RandomState(seed)
+        if pairs_list is None:
+            max_idx = min(number_of_pairs, len(initial_dataset))
+            xy = np.mgrid[:max_idx, :max_idx].reshape(2, -1).T
+            number_of_pairs = min(xy.shape[0], number_of_pairs)
+            self.pairs = xy[rng.choice(xy.shape[0], number_of_pairs, replace=False)]
+        else:
+            videos = initial_dataset.videos
+            name_to_index = {name: i for i, name in enumerate(videos)}
+            with open(pairs_list, newline="") as fh:
+                reader = csv.DictReader(fh)
+                rows = list(reader)
+            missing = [c for c in ("source", "driving") if c not in (reader.fieldnames or ())]
+            if missing:
+                raise KeyError(f"{pairs_list} has no column {missing[0]!r}")
+            kept = [(d, s) for s, d in zip(_csv_names(rows, "source"), _csv_names(rows, "driving"))
+                    if s in name_to_index and d in name_to_index]
+            self.pairs = [(name_to_index[d], name_to_index[s])
+                          for d, s in kept[:number_of_pairs]]
+
+    def __len__(self):
+        return len(self.pairs)
+
+    def __getitem__(self, idx):
+        driving_idx, source_idx = self.pairs[idx]
+        return {"driving_video": self.initial_dataset[driving_idx],
+                "source_video": self.initial_dataset[source_idx]}

@@ -1,18 +1,23 @@
 """EFE — expression feature extractor, variant conv5 (port of
 facevae_tpu/models/efe.py).
 
-forward(x, x_a=None, kp_old, train_vae=False) returns
+forward(x, x_a=None, kp_old, train_vae=False, eps=None, generator=None)
+returns
   (kp [N,K,3], x_c, x_a_c, (mu, logstd), (x_vae, x_hat))
 like the JAX module.  With x_a (the augmented view, training's contrastive
 branch) the shared encoder runs on x and then on x_a, and x_c / x_a_c are
 the two encoder maps, channel-last [N,h,w,C] like the JAX module's (the
 contrastive head flattens them in that order); without x_a they are None.
-x_vae / x_hat are channel-last; mu / logstd are None (z = mu).  kp is a
+x_vae / x_hat are channel-last.  With train_vae the VAE samples z = mu +
+exp(logstd) * eps (eps given, or drawn from ``generator``) and mu / logstd
+are [N, h*w*Cz] in the JAX module's channel-last order; without it they are
+None and z = mu (quirk q8: the reference trains with it off).  kp is a
 soft-argmax over a heatmap mixed with gaussians of the pose-only keypoints
-kp_old.  VAE sampling (train_vae=True) raises: the reference trains with it
-off (quirk q8).
+kp_old.
 """
 from __future__ import annotations
+
+from typing import Optional
 
 import torch
 import torch.nn as nn
@@ -67,14 +72,16 @@ class EFEConv(nn.Module):
             ResBlock3D(2 * K, use_weight_norm, device=device) for _ in range(n_res)])
         self.mix_out = SameBlock3D(2 * K, K, use_weight_norm, device=device)
 
-    def forward(self, x, x_a=None, kp_old=None, train_vae: bool = False):
+    def forward(self, x, x_a=None, kp_old=None, train_vae: bool = False,
+                eps: Optional[torch.Tensor] = None,
+                generator: Optional[torch.Generator] = None):
         x = self.down(x.permute(0, 3, 1, 2))
         x_c = x_a_c = None
         if x_a is not None:               # second call of the shared encoder
             x_c = x.permute(0, 2, 3, 1)
             x_a_c = self.down(x_a.permute(0, 3, 1, 2)).permute(0, 2, 3, 1)
         x_vae = x
-        (mu, logstd), x_hat = self.vae(x, train_vae)
+        (mu, logstd), x_hat = self.vae(x, train_vae, eps, generator)
         x = self.mid_conv(x_hat)
         n, _, h, w = x.shape
         x = x.view(n, self.up0, self.D, h, w)

@@ -49,7 +49,9 @@ block per (n, tile of output voxels) that writes its k-major output tile
 through shared memory (csrc/warp_fwd.cu).
 
 Each path counts its launches in ``launches`` (plain integers), so a run can
-show which path the served or trained graph took.
+show which path the served or trained graph took.  The two forward
+wrappers also keep the grid their last launch used, as the launch code
+wrote it back, in ``launch_grids``.
 """
 from __future__ import annotations
 
@@ -68,6 +70,11 @@ launches = {"warp_fwd": 0, "warp_fwd_plain": 0,
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _MAX_GRID_Y = 65535
 _MAX_GRID_X = 2 ** 31 - 1
+
+
+# forward kernel name -> (grid x, grid y, grid z, threads a block) of its
+# wrapper's last launch, as the launch code wrote them back
+launch_grids = {}
 
 
 def reset_launch_counts():
@@ -239,10 +246,11 @@ def grid_sample_3d_bwd_plain(x, grid, gout, grids_per_source=1, need_dx=True,
     return dx, dgrid
 
 
+_GRID_OUT = ctypes.POINTER(ctypes.c_uint)
 _SIGNATURES = {
     # name: (library, C symbol, argtypes)
     "warp_fwd": ("warp_fwd", "facevae_warp_fwd",
-                 [ctypes.c_void_p] * 5 + [ctypes.c_int] * 9 + [ctypes.c_void_p]),
+                 [ctypes.c_void_p] * 5 + [ctypes.c_int] * 9 + [ctypes.c_void_p, _GRID_OUT]),
     "warp_bwd_dgrid": ("warp_bwd", "facevae_warp_bwd_dgrid",
                        [ctypes.c_void_p] * 8 + [ctypes.c_int] * 9 + [ctypes.c_void_p]),
     "warp_bwd_dx": ("warp_bwd", "facevae_warp_bwd_dx",
@@ -250,7 +258,7 @@ _SIGNATURES = {
     "warp_bwd_dx_det": ("warp_bwd", "facevae_warp_bwd_dx_det",
                         [ctypes.c_void_p] * 8 + [ctypes.c_int] * 9 + [ctypes.c_void_p]),
     "grid_fwd": ("warp_grid", "facevae_grid_fwd",
-                 [ctypes.c_void_p] * 3 + [ctypes.c_int] * 9 + [ctypes.c_void_p]),
+                 [ctypes.c_void_p] * 3 + [ctypes.c_int] * 9 + [ctypes.c_void_p, _GRID_OUT]),
     "grid_bwd_dgrid": ("warp_grid", "facevae_grid_bwd_dgrid",
                        [ctypes.c_void_p] * 4 + [ctypes.c_int] * 9 + [ctypes.c_void_p]),
     "grid_bwd_dx": ("warp_grid", "facevae_grid_bwd_dx",
@@ -390,9 +398,12 @@ def warp_multi_pixel_cuda(x, cgx, cgy, cgz, spatial):
     if out.numel() == 0:
         return out.reshape(N, *spatial, K1 * C)
     cpt = _cpt(C, x.element_size(), x)
+    launched = (ctypes.c_uint * 4)()
     with torch.cuda.device(x.device):
         _launch("warp_fwd", x.data_ptr(), cgx.data_ptr(), cgy.data_ptr(), cgz.data_ptr(),
-                out.data_ptr(), N, D, H, W, C, K1, NV, _DTYPE_CODES[x.dtype], cpt, _stream(x))
+                out.data_ptr(), N, D, H, W, C, K1, NV, _DTYPE_CODES[x.dtype], cpt, _stream(x),
+                launched)
+    launch_grids["warp_fwd"] = tuple(launched)
     return out.reshape(N, *spatial, K1 * C)
 
 
@@ -450,9 +461,12 @@ def grid_sample_3d_cuda(x, grid, grids_per_source=1):
     if out.numel() == 0:
         return out
     cpt = _cpt(C, x.element_size(), x, out)
+    launched = (ctypes.c_uint * 4)()
     with torch.cuda.device(x.device):
         _launch("grid_fwd", x.data_ptr(), grid.data_ptr(), out.data_ptr(),
-                D, H, W, C, grids_per_source, G, NV, _DTYPE_CODES[x.dtype], cpt, _stream(x))
+                D, H, W, C, grids_per_source, G, NV, _DTYPE_CODES[x.dtype], cpt, _stream(x),
+                launched)
+    launch_grids["grid_fwd"] = tuple(launched)
     return out
 
 

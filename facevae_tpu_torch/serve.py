@@ -13,12 +13,16 @@ the default 10 ms window, which a full-width flush (~170 ms) outlasts:
   POST /drive?session=<id>       -> animate; returns the generated frame
   POST /frontalize               -> frontalize the posted frame (stateless)
 
-Payloads are raw RGB bytes (H*W*3 uint8) or PNG; responses are raw RGB bytes.
+Payloads are raw RGB bytes (H*W*3 uint8) or PNG (decoded by the port's own
+reader, data/image_io.read_png); responses are raw RGB bytes.
 Requests are collected into batches of --max_batch (padded), flushed when
 full or when the oldest has waited --batch_window_ms.  The six G nets come
 from the epoch file --ckp_dir/%08d-checkpoint.msgpack of epoch --ckp,
 written by either package's save_checkpoint (train/checkpoint.py), or with
---random_init true from a seed:
+--random_init true from a seed.  --bf16 true is taken, as the JAX server
+takes it, and serves fp32 all the same, as the JAX server does in practice
+(its InferencePipeline never casts to the compute dtype); the server says
+so when it starts:
 
     python -m facevae_tpu_torch.serve --ckp_dir ckp --ckp 12       # on the card
     python -m facevae_tpu_torch.serve --tiny true --image_size 64 \
@@ -27,7 +31,7 @@ written by either package's save_checkpoint (train/checkpoint.py), or with
 from __future__ import annotations
 
 import argparse
-import io
+import collections
 import json
 import queue
 import threading
@@ -40,6 +44,8 @@ import torch
 
 from facevae_tpu_torch.config import Config, ModelConfig, tiny_config
 from facevae_tpu_torch.convert import load_jax_variables, net_variables
+from facevae_tpu_torch.data.dataset import to_rgb
+from facevae_tpu_torch.data.image_io import PNG_SIGNATURE, read_png
 from facevae_tpu_torch.models import build_models
 from facevae_tpu_torch.train.checkpoint import read_checkpoint
 from facevae_tpu_torch.train.inference import InferencePipeline
@@ -69,6 +75,8 @@ def parse_args(argv=None):
     p.add_argument("--batch_window_ms", type=float, default=10.0)
     p.add_argument("--random_init", type=_flag, default=False,
                    help="seeded random weights instead of --ckp_dir/--ckp")
+    p.add_argument("--bf16", type=_flag, default=False,
+                   help="taken for the JAX server's flag; serving stays fp32")
     p.add_argument("--device", type=str, default="cuda")
     return p.parse_args(argv)
 
@@ -79,6 +87,8 @@ class BatchedEngine:
     has waited window_ms.  Errors fan out to every request of the batch.
     Session encodings stay on the device at batch 1."""
 
+    FLUSH_MS_KEPT = 4096
+
     def __init__(self, pipe: InferencePipeline, device, max_batch, window_ms):
         self.pipe = pipe
         self.device = torch.device(device)
@@ -88,7 +98,8 @@ class BatchedEngine:
         self.lock = threading.Lock()
         self.requests: "queue.Queue" = queue.Queue()
         self.stats = {"batches": 0, "frames": 0, "padded": 0}
-        self.flush_ms = []            # host time of each batch, images in -> frames out
+        # host time of each of the last FLUSH_MS_KEPT batches, images in -> frames out
+        self.flush_ms = collections.deque(maxlen=self.FLUSH_MS_KEPT)
         self._stop = False
         size = pipe.cfg.model.image_size
         self._zero = np.zeros((1, size, size, 3), np.float32)
@@ -209,13 +220,16 @@ class BatchedEngine:
 
 
 def _decode_image(body, size):
-    """Raw RGB bytes (size*size*3 uint8) or an image file -> [H,W,3] float32."""
+    """Raw RGB bytes (size*size*3 uint8) or a PNG file -> [H,W,3] float32
+    (grey stacked to RGB, alpha dropped)."""
     raw_len = size * size * 3
     if len(body) == raw_len:
         a = np.frombuffer(body, np.uint8).reshape(size, size, 3)
         return a.astype(np.float32) / 255.0
-    import imageio.v2 as imageio
-    a = imageio.imread(io.BytesIO(body))
+    if not body.startswith(PNG_SIGNATURE):
+        raise ValueError(f"expected {raw_len} bytes of raw RGB or a PNG file, got "
+                         f"{len(body)} bytes")
+    a = to_rgb(read_png(body))
     if a.shape[:2] != (size, size):
         raise ValueError(f"expected {size}x{size}, got {a.shape}")
     return a[..., :3].astype(np.float32) / 255.0
@@ -304,6 +318,9 @@ def start_server(engine: BatchedEngine, host: str, port: int) -> ThreadingHTTPSe
 
 def main(argv=None):
     args = parse_args(argv)
+    if args.bf16:
+        print("--bf16 true: serving fp32 all the same (the JAX server's pipeline never "
+              "casts to bf16)", flush=True)
     engine = build_engine(args)
     print("warming up ...", flush=True)
     engine.warmup()

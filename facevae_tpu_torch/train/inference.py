@@ -1,5 +1,7 @@
-"""Batched inference graphs (port of facevae_tpu/train/inference.py), the
-serving slice: encode_source, drive_frame, drive_batch, frontalize_frame.
+"""Batched inference graphs (port of facevae_tpu/train/inference.py):
+encode_source, drive_frame, drive_batch and frontalize_frame (serving), and
+sample_expression and interpolate_expression (the evaluation CLI's ``s``
+and ``i`` modes), each the JAX graph's sequence of nets.
 
 Images are [N,H,W,3] float32 in [0,1] on the models' device, in and out.
 Every graph runs under torch.inference_mode() with the modules in eval mode.
@@ -7,11 +9,10 @@ Like the JAX pipeline it runs in fp32 whatever ``compute_dtype`` says: the
 JAX InferencePipeline never casts to it (ROADMAP Queue 3).  Constructing a
 pipeline sets the port's numerics (TF32 off, facevae_tpu_torch/numerics.py):
 cuDNN's default TF32 convolutions miss the fp32 parity tolerance.
-The ``sample`` / ``interp`` graphs wait for later PRs (ROADMAP Queue 1).
 """
 from __future__ import annotations
 
-from typing import Dict
+from typing import Dict, Optional
 
 import torch
 import torch.nn as nn
@@ -80,4 +81,40 @@ class InferencePipeline:
                                               yaw, pitch, roll, t, delta,
                                               zero, zero, zero)
         deformation, occlusion, _ = self.models["mfe"](fs, kp_s, kp_d, Rs, Rd)
+        return self.models["generator"](fs, deformation, occlusion)
+
+    @torch.inference_mode()
+    def sample_expression(self, img, temperature=1.0, eps: Optional[torch.Tensor] = None,
+                          generator: Optional[torch.Generator] = None):
+        """(frame, temperature) -> the frame with a resampled EFE latent.
+        EFE runs twice, deterministic (kp_s) and sampling its VAE (z = mu +
+        exp(logstd) * eps; eps given [N, h*w*Cz], or drawn from
+        ``generator``), kp_d = kp_s + temperature * (kp_d - kp_s), and MFE
+        warps with the frame's own rotation on both sides."""
+        fs = self.models["afe"](img)
+        kp_c = self.models["ckd"](img)
+        yaw, pitch, roll, t, scale = self.models["hpe_ede"](img)
+        kp_old, Rs = transform_kp(kp_c, yaw, pitch, roll, t, scale)
+        efe = self.models["efe"]
+        kp_s = efe(img, None, kp_old)[0]
+        kp_d = efe(img, None, kp_old, train_vae=True, eps=eps, generator=generator)[0]
+        kp_d = kp_s + temperature * (kp_d - kp_s)
+        deformation, occlusion, _ = self.models["mfe"](fs, kp_s, kp_d, Rs, Rs)
+        return self.models["generator"](fs, deformation, occlusion)
+
+    @torch.inference_mode()
+    def interpolate_expression(self, s, d, alpha):
+        """(source frame, target frame, alpha) -> the source with keypoints
+        (1 - alpha) * kp_s + alpha * kp_d: one HPE_EDE call on the batch
+        [s; d], EFE on each, MFE from Rs to Rd."""
+        fs = self.models["afe"](s)
+        kp_c = self.models["ckd"](s)
+        yaw, pitch, roll, t, scale = self.models["hpe_ede"](torch.cat([s, d]))
+        n = s.shape[0]
+        kp_s_old, Rs = transform_kp(kp_c, yaw[:n], pitch[:n], roll[:n], t[:n], scale[:n])
+        kp_d_old, Rd = transform_kp(kp_c, yaw[n:], pitch[n:], roll[n:], t[n:], scale[n:])
+        kp_s = self.models["efe"](s, None, kp_s_old)[0]
+        kp_d = self.models["efe"](d, None, kp_d_old)[0]
+        kp_mix = (1 - alpha) * kp_s + alpha * kp_d
+        deformation, occlusion, _ = self.models["mfe"](fs, kp_s, kp_mix, Rs, Rd)
         return self.models["generator"](fs, deformation, occlusion)

@@ -31,7 +31,7 @@ import torch
 from facevae_tpu_torch.config import Config
 from facevae_tpu_torch.losses import (
     deformation_prior_loss, equivariance_loss, feature_matching_loss, gan_loss_dis,
-    gan_loss_gen, headpose_loss, keypoint_prior_loss, recon_loss,
+    gan_loss_gen, headpose_loss, keypoint_prior_loss, kl_divergence_loss, recon_loss,
 )
 from facevae_tpu_torch.ops.geometry import transform_kp
 from facevae_tpu_torch.ops.interpolate import interpolate_nearest_2d
@@ -59,15 +59,15 @@ def compute_dtype(cfg: Config) -> torch.dtype:
 def generator_forward(nets, cfg: Config, s, d, s_a, d_a,
                       transform_params: Optional[TransformParams] = None,
                       generator: Optional[torch.Generator] = None,
-                      train_vae: bool = False
+                      train_vae: bool = False, vae_eps: Optional[torch.Tensor] = None
                       ) -> Tuple[Dict[str, torch.Tensor], Dict[str, torch.Tensor]]:
     """The generator side of one step.  Returns (losses, aux): the ten
     weighted losses {P,G,F,E,L,H,D,C,K,R} and the tensors the discriminator
     phase and the visualizer read.  The TPS parameters are drawn from
-    ``generator`` unless ``transform_params`` is given."""
-    if train_vae:
-        raise NotImplementedError("VAE sampling (train_vae=True) is not ported (ROADMAP "
-                                  "Queue 1); the reference trains with it off (q8)")
+    ``generator`` unless ``transform_params`` is given.  With train_vae the
+    driving frame's EFE call samples its VAE (the other two do not) and K is
+    the weighted KL term; its eps is ``vae_eps`` or drawn from ``generator``
+    after the TPS parameters, the order of the JAX objective's key split."""
     w = cfg.loss
     N = s.shape[0]
     cdt = compute_dtype(cfg)
@@ -106,7 +106,8 @@ def generator_forward(nets, cfg: Config, s, d, s_a, d_a,
 
     efe = nets["efe"]
     kp_s, _, _, _, _ = efe(s_c, s_a, kp_s_old)
-    kp_d, x_c_d, x_a_c_d, _, (x_vae_d, _) = efe(d_c, d_a, kp_d_old)
+    kp_d, x_c_d, x_a_c_d, (mu_d, logstd_d), (x_vae_d, _) = efe(
+        d_c, d_a, kp_d_old, train_vae=train_vae, eps=vae_eps, generator=generator)
     transformed_kp = efe(transformed_d.to(cdt), None, transformed_kp_old)[0]
 
     reverse_kp = warp_coordinates(tp, transformed_kp[:, :, :2])
@@ -127,7 +128,8 @@ def generator_forward(nets, cfg: Config, s, d, s_a, d_a,
         "D": w.deformation_prior * deformation_prior_loss(kp_d_old - kp_d),
         "C": (w.contrastive * nets["contrastive"](x_c_d, x_a_c_d)
               if x_c_d is not None else zero),
-        "K": zero,                                   # train_vae off (q8)
+        "K": (w.kl * kl_divergence_loss(mu_d, logstd_d)
+              if train_vae and mu_d is not None else zero),
         "R": w.recon * recon_loss(d, generated_d) if x_vae_d is not None else zero,
     }
     aux = {

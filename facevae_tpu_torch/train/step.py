@@ -27,14 +27,16 @@ def _set_requires_grad(state: TrainState, names, flag: bool):
 
 
 def train_step(state: TrainState, batch, transform_params: Optional[TransformParams] = None,
-               generator: Optional[torch.Generator] = None) -> Dict[str, Any]:
+               generator: Optional[torch.Generator] = None,
+               vae_eps: Optional[torch.Tensor] = None) -> Dict[str, Any]:
     """batch = (s, d, s_a, d_a), each [N,H,W,3] float32 on the state's
     device.  Updates ``state`` in place and returns {"losses_g": {...},
     "losses_d": {...}, "aux": {...}} (tensors on the device, detached).
     After the call every trainable parameter's .grad holds the gradient
     this step applied.  The step passes ``cfg.train.train_vae`` to generator_forward, as
-    the JAX step does; set, it raises NotImplementedError there (VAE
-    sampling is not ported), before any parameter is updated."""
+    the JAX step does: set, the driving frame's EFE call samples its VAE
+    (eps ``vae_eps``, else drawn from ``generator`` after the TPS
+    parameters) and K is the KL term."""
     numerics.apply()
     s, d, s_a, d_a = batch
 
@@ -42,7 +44,8 @@ def train_step(state: TrainState, batch, transform_params: Optional[TransformPar
     state.g_opt.zero_grad(set_to_none=True)
     losses_g, aux = generator_forward(state.nets, state.cfg, s, d, s_a, d_a,
                                       transform_params=transform_params,
-                                      generator=generator, train_vae=state.cfg.train.train_vae)
+                                      generator=generator, train_vae=state.cfg.train.train_vae,
+                                      vae_eps=vae_eps)
     sum(losses_g.values()).backward()
     state.g_opt.step()
 

@@ -160,6 +160,33 @@ def test_single_grid_forward_kernel_matches_plain(spatial, C, dtype):
     assert torch.equal(multi.reshape(single.shape), single)
 
 
+@pytest.mark.parametrize("N, D, H, W, C, K1", [(1, 16, 64, 64, 4, 15), (2, 4, 8, 8, 32, 1),
+                                                (1, 16, 64, 64, 32, 1), (3, 1, 17, 19, 3, 1)])
+def test_forward_wrappers_report_the_grid_they_launched(N, D, H, W, C, K1):
+    """fast_warp.launch_grids holds each forward wrapper's last launch as the
+    launch code wrote it back: 256 threads a block, one grid row per batch
+    entry (kernel 1) or per grid (kernel 4), and enough blocks along x that
+    every voxel has a thread (kernel 1 at K1 > 1: a tile of at most 64
+    voxels a block), and no more blocks than one voxel a block (K1 > 1)
+    or one channel a thread."""
+    x, coords, spatial = _case(N + C + K1, N, D, H, W, C, K1, torch.float32)
+    NV = D * H * W
+    fast_warp.launch_grids.clear()
+    fast_warp.warp_multi_pixel_cuda(x, *coords, spatial)
+    gx, gy, gz, threads = fast_warp.launch_grids["warp_fwd"]
+    assert (gy, gz, threads) == (N, 1, 256)
+    if K1 > 1:
+        assert NV <= gx * 64 and gx <= NV
+    else:
+        assert NV <= gx * 256 and gx <= -(-NV * C // 256)
+    if K1 == 1:
+        grid = torch.rand(N, D, H, W, 3, device="cuda") * 2 - 1
+        fast_warp.grid_sample_3d_cuda(x, grid, 1)
+        gx, gy, gz, threads = fast_warp.launch_grids["grid_fwd"]
+        assert (gy, gz, threads) == (N, 1, 256)
+        assert NV <= gx * 256 <= NV * C + 255
+
+
 @contextlib.contextmanager
 def _deterministic(on=True):
     """PyTorch's deterministic algorithms ``on`` (the wrappers then launch

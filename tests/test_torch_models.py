@@ -118,8 +118,10 @@ def test_bridge_maps_by_name(env):
 
 
 def test_build_models_refuses_what_is_not_ported(env):
-    """The dormant EFE variants and VAE sampling are not ported; unknown
-    names are refused; the discriminator and the training forms are."""
+    """The dormant EFE variants are not ported; unknown names are refused;
+    the discriminator, the training forms and VAE sampling are (with eps = 0
+    the sampling EFE gives the deterministic keypoints, and returns mu and
+    logstd, [N, h*w*Cz])."""
     with pytest.raises(NotImplementedError):
         build_models(dataclasses.replace(env["cfg"].model, efe_variant="conv4"), "cpu",
                      names=("efe",))
@@ -127,8 +129,11 @@ def test_build_models_refuses_what_is_not_ported(env):
         build_models(env["cfg"].model, "cpu", names=("hopenet",))
     efe = build_models(env["cfg"].model, "cpu", names=("efe",))["efe"]
     img, _, kp = env["inputs"]["efe"]
-    with pytest.raises(NotImplementedError, match="train_vae"):
-        efe(torch.from_numpy(img), None, torch.from_numpy(kp), train_vae=True)
+    with torch.inference_mode():
+        kp_det = efe(torch.from_numpy(img), None, torch.from_numpy(kp))[0]
+        kp_vae, _, _, (mu, logstd), _ = efe(torch.from_numpy(img), None, torch.from_numpy(kp),
+                                            train_vae=True, eps=torch.zeros(img.shape[0], 16))
+    assert torch.equal(kp_vae, kp_det) and mu.shape == logstd.shape == (img.shape[0], 16)
     nets = build_models(env["cfg"].model, "cpu", names=("generator", "discriminator"))
     out = nets["generator"].train()(*[torch.from_numpy(a) for a in env["inputs"]["generator"]])
     logits, features = nets["discriminator"].train()(out, torch.from_numpy(kp))

@@ -31,13 +31,13 @@ def _angles(rs, n=3):
     return [rs.uniform(-1.2, 1.2, n).astype(np.float32) for _ in range(3)]
 
 
-_FORBIDDEN = ("jax", "jaxlib", "flax", "facevae_tpu", "serve")
+_FORBIDDEN = ("jax", "jaxlib", "flax", "facevae_tpu", "serve", "evaluate")
 
 
 def test_import_has_no_jax():
     """Every module of the port, and chip_smoke, import nothing of JAX and
     nothing of the JAX package (not even its JAX-free modules, such as
-    facevae_tpu.config or the root serve.py)."""
+    facevae_tpu.config or the root serve.py and evaluate.py)."""
     code = ("import importlib, pkgutil, sys, facevae_tpu_torch, chip_smoke\n"
             "names = [m.name for m in pkgutil.walk_packages(facevae_tpu_torch.__path__, "
             "'facevae_tpu_torch.')]\n"

@@ -8,9 +8,11 @@ the CPU.
   into the JAX trees: every leaf equal bit for bit, loaded or untouched;
   the same printed line; the same KeyError / ValueError on a key with no
   leaf / a shape mismatch; the same warning when no file exists.
-- TrainConfig.train_vae: a step on a config with it set raises the
-  objective's NotImplementedError (VAE sampling is not ported), as the JAX
-  step would take the sampling path; the default config steps.
+- TrainConfig.train_vae: a step on a config with it set raises the VAE's
+  ValueError on an eps not laid out as [N, h*w*Cz]; given none, it samples
+  the driving frame's VAE, as the JAX step does, and with LossConfig.kl = 1
+  its K loss is the KL term, nonzero; the default config steps with K = 0
+  (tests/test_torch_vae_step.py holds the sampling step to the JAX one).
 """
 import dataclasses
 
@@ -140,11 +142,17 @@ def test_pretrained_teachers_refuse_what_the_jax_package_refuses(bad, error, fil
 
 def test_train_vae_raises_from_the_step_and_the_default_config_steps(port_nets):
     cfg = tiny_config()
-    vae = dataclasses.replace(cfg, train=dataclasses.replace(cfg.train, train_vae=True))
+    vae = dataclasses.replace(cfg, train=dataclasses.replace(cfg.train, train_vae=True),
+                              loss=dataclasses.replace(cfg.loss, kl=1.0))
     g = torch.Generator().manual_seed(0)
     size = cfg.model.image_size
     batch = tuple(torch.rand(2, size, size, 3, generator=g) for _ in range(4))
-    with pytest.raises(NotImplementedError, match="train_vae"):
-        train_step(create_train_state(vae, "cpu", port_nets), batch, generator=g)
+    with pytest.raises(ValueError, match="eps"):          # channel-first: not the JAX order
+        train_step(create_train_state(vae, "cpu", port_nets), batch, generator=g,
+                   vae_eps=torch.zeros(2, 16, 1, 1))
+    out = train_step(create_train_state(vae, "cpu", port_nets), batch, generator=g)
+    assert all(bool(torch.isfinite(v)) for v in {**out["losses_g"], **out["losses_d"]}.values())
+    assert float(out["losses_g"]["K"]) > 0.0
     out = train_step(create_train_state(cfg, "cpu", port_nets), batch, generator=g)
     assert all(bool(torch.isfinite(v)) for v in {**out["losses_g"], **out["losses_d"]}.values())
+    assert float(out["losses_g"]["K"]) == 0.0

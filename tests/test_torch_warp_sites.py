@@ -84,11 +84,11 @@ def test_recorded_step_is_the_unrecorded_step():
 
 
 def test_recorder_restores_warp_single_when_the_step_raises():
-    """A train_vae=True step raises (VAE sampling is not ported); the patch
-    is undone all the same."""
+    """A step on a compute dtype the port refuses raises after the patch
+    is in place; the patch is undone all the same."""
     cfg = tiny_config()
-    cfg = dataclasses.replace(cfg, train=dataclasses.replace(cfg.train, train_vae=True))
-    with pytest.raises(NotImplementedError):
+    cfg = dataclasses.replace(cfg, model=dataclasses.replace(cfg.model, compute_dtype="float16"))
+    with pytest.raises(ValueError, match="compute_dtype"):
         bench_warp.record_first_call(cfg, generator, "warp_single", "cpu", BATCH)
     assert generator.warp_single is fast_warp.warp_single
 

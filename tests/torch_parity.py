@@ -7,6 +7,7 @@ it is loaded here by path.
 from __future__ import annotations
 
 import importlib.util
+import types
 from pathlib import Path
 
 import numpy as np
@@ -54,6 +55,19 @@ def assert_held(actual, ref, others, rel, what="", scale=None):
     limit = SPREAD * noise + rel * scale
     assert err <= limit, (f"{what}: max|err| {err:.3e} > {SPREAD:g} * JAX's own spread "
                           f"{noise:.3e} + {rel:g} * scale {scale:.3e}")
+
+
+def fixed_normal(eps):
+    """A stand-in for facevae_tpu.models.vae's ``jax`` module whose
+    random.normal returns ``eps`` (numpy) in the requested dtype: JAX's
+    threefry draw has no torch equivalent, so a parity test patches the VAE
+    module's ``jax`` with this and hands the port the same eps."""
+    import jax.numpy as jnp
+
+    def normal(key, shape, dtype=jnp.float32):
+        assert tuple(shape) == eps.shape, (shape, eps.shape)
+        return jnp.asarray(eps, dtype)
+    return types.SimpleNamespace(random=types.SimpleNamespace(normal=normal))
 
 
 @pytest.fixture(scope="module", autouse=True)

@@ -16,7 +16,8 @@ tests/test_torch_pipeline.py checks it on the CPU.  The parity tests use the
 helpers below too: g_variables for the six G nets, train_variables and
 jax_train_state for a whole JAX train state (the seven trainable nets, the
 frozen teachers and the contrastive head, every tree filled from one numpy
-seed), and jax_step_grads for the gradients of one JAX step.
+seed), and make_step_grads / jax_step_grads for the gradients of one JAX
+step.
 
 Usage:  python tools/make_torch_golden.py [--out PATH] [--seed 0]
 """
@@ -190,38 +191,52 @@ def train_state_tree(state):
                       "spectral")}
 
 
-def jax_step_grads(cfg, models, state, batch, rng, transform_params):
-    """One JAX step's gradients, by the JAX package's own objective: the
-    generator phase differentiated at ``state`` and the discriminator phase
-    at the G phase's BN / spectral state, as facevae_tpu/train/step.py does
-    (its step returns no gradients).  Returns a dict of numpy trees:
-    losses_g, losses_d, g_grads, d_grads, batch_stats, spectral (after the
-    D phase)."""
+def make_step_grads(cfg, models, train_vae=False):
+    """A function (state, batch, rng, transform_params) -> one JAX step's
+    gradients, by the JAX package's own objective: the generator phase
+    differentiated at ``state`` and the discriminator phase at the G phase's
+    BN / spectral state, as facevae_tpu/train/step.py does (its step returns
+    no gradients); ``train_vae`` as the step passes cfg.train.train_vae.
+    Everything is an argument of the two jitted functions, so a second call
+    at the same shapes and dtypes reuses their compilation.  The function
+    returns a dict of numpy trees: losses_g, losses_d, g_grads, d_grads,
+    batch_stats, spectral (after the D phase)."""
     import jax
     from facevae_tpu.train.objective import VarBank, discriminator_forward, generator_forward
-    s, d, s_a, d_a = batch
 
-    def g_loss(g_params):
+    def g_loss(g_params, state, batch, rng, transform_params):
+        s, d, s_a, d_a = batch
         bank = VarBank({**g_params, **state.d_params, **state.c_params},
                        state.batch_stats, state.spectral)
         losses, aux = generator_forward(models, state.teachers, bank, cfg, s, d, s_a, d_a,
-                                        rng, transform_params=transform_params)
+                                        rng, train_vae=train_vae,
+                                        transform_params=transform_params)
         return sum(losses.values()), (losses, aux, *bank.collections())
 
-    def d_loss(d_params, stats, spectral, generated_d, kp_d):
+    def d_loss(d_params, state, stats, spectral, d, generated_d, kp_d):
         bank = VarBank({**state.g_params, **d_params, **state.c_params}, stats, spectral)
         losses = discriminator_forward(models, bank, cfg, d, generated_d, kp_d)
         return sum(losses.values()), (losses, *bank.collections())
 
-    (_, (losses_g, aux, stats, spectral)), g_grads = jax.jit(
-        jax.value_and_grad(g_loss, has_aux=True))(state.g_params)
-    (_, (losses_d, stats, spectral)), d_grads = jax.jit(
-        jax.value_and_grad(d_loss, has_aux=True))(
-            state.d_params, stats, spectral, jax.lax.stop_gradient(aux["generated_d"]),
-            jax.lax.stop_gradient(aux["kp_d"]))
-    return jax.tree.map(np.asarray, {"losses_g": losses_g, "losses_d": losses_d,
-                                     "g_grads": g_grads, "d_grads": d_grads,
-                                     "batch_stats": stats, "spectral": spectral})
+    g_grad = jax.jit(jax.value_and_grad(g_loss, has_aux=True))
+    d_grad = jax.jit(jax.value_and_grad(d_loss, has_aux=True))
+
+    def step_grads(state, batch, rng, transform_params):
+        (_, (losses_g, aux, stats, spectral)), g_grads = g_grad(
+            state.g_params, state, batch, rng, transform_params)
+        (_, (losses_d, stats, spectral)), d_grads = d_grad(
+            state.d_params, state, stats, spectral, batch[1],
+            jax.lax.stop_gradient(aux["generated_d"]), jax.lax.stop_gradient(aux["kp_d"]))
+        return jax.tree.map(np.asarray, {"losses_g": losses_g, "losses_d": losses_d,
+                                         "g_grads": g_grads, "d_grads": d_grads,
+                                         "batch_stats": stats, "spectral": spectral})
+
+    return step_grads
+
+
+def jax_step_grads(cfg, models, state, batch, rng, transform_params, train_vae=False):
+    """One JAX step's gradients (make_step_grads, compiled for this call)."""
+    return make_step_grads(cfg, models, train_vae)(state, batch, rng, transform_params)
 
 
 def jax_pipeline(cfg, variables):
