@@ -5,8 +5,8 @@
 
 Phases, each fatal on failure (exit code 1, no result line):
   1. device   nvidia-smi name and power limit, torch / CUDA versions, the
-              numerics switches (TF32 off), and whether imageio, PIL, cv2
-              and pandas import (printed only).
+              numerics switches (TF32 off), and whether imageio, PIL, cv2,
+              pandas, matplotlib and tensorboardX import (printed only).
   2. build    nvcc-builds every kernel library from csrc/ (warp_fwd,
               warp_bwd, warp_grid, probe_gather, probe_warp), one nvcc per
               source, all started together.
@@ -116,6 +116,26 @@ Phases, each fatal on failure (exit code 1, no result line):
               multi-grid forward 3 times (MFE, Generator, TPS), its dgrid
               and dx kernels twice, the single-grid kernels and the plain
               versions never.  Prints the step time, frames/s, peak memory.
+     train_loop  the training CLI, facevae_tpu_torch.train's main, in-process
+              at full width on a PNG tree that PIL writes with grain (4
+              identities x 2 clips x 6 frames at 256x256, its row filters):
+              fp32 for two epochs (3 steps each at batch 8, kernel 1 three
+              times a step: MFE and the fused augmentation's two batches;
+              kernels 2-6 once; plain versions never; two G / D log lines
+              with the K column, two visualizations, one epoch file kept),
+              resumed with --ckp -1 for a third (epoch 2 from step 6), bf16
+              with --device_cache for one (kernel 1 five times a step,
+              kernels 2-3 twice, 4-6 never), and --cpu_aug for one (cv2 /
+              PIL on the host; kernel 1 once a step); each epoch's frames/s
+              and the share of it the loop's thread waited on the prefetch
+              queue; read_png's ms per frame.  Before them kernel 1 at the
+              augmentation's own call, x[8,1,256,256,3] K1=1 on
+              frame_draws' homography coordinates, fp32 and bf16, against
+              its plain version (AUG_TOL), timed as phase 3 times it with
+              F.grid_sample 2-D (border padding) beside it; and the
+              augmentation on the card against the port's on the CPU with
+              the same draws (the warp within 2^-7 of max|ref|: the bf16
+              rows' and output's roundings; the colour jitter within 1e-5).
   9. probes   the probe path: the run() of each of the four probes of
               facevae_tpu_torch/probes/ (TPU kernels 7-10, csrc/probe_*.cu)
               at the probe's own shapes, as its entry point calls it, with
@@ -136,7 +156,8 @@ Phases, each fatal on failure (exit code 1, no result line):
               (probe 7: volT's permuted view; probe 8: its fp32 source made
               from rows3 inside the timed call).
 Then a JSON line of kernel results (``launches_by_path`` per main path,
-``eval`` included; kernels 1 and 4 also ``eval_n1``), the eval rates, the
+``eval`` and ``train_loop`` included; kernels 1 and 4 also ``eval_n1``,
+kernel 1 also ``aug``), the eval rates, the training loop's rates, the
 card's name and power limit, and the last line {"ok": true, "device":
 {...}}.  There is no CPU fallback: without a CUDA device the script fails.
 """
@@ -233,6 +254,16 @@ ROUNDS, CONCURRENCY, MAX_BATCH = 4, 16, 8
 # and gif frames in levels of 255 (fp32 differences of ~1e-5 cross a truncation)
 EVAL_VIDEOS, EVAL_FRAMES = 2, 17
 EVAL_TOL = {"mean": 1e-4 + 1e-6, "psnr_db": 0.01, "levels": 1}
+# the train_loop phase: the augmentation's frame size; kernel 1 vs plain there,
+# of max|ref| (bf16: the same fp32 sum, in another order, rounded to bf16 on
+# either side of a rounding boundary: one bf16 step, at most 2^-7 of
+# max|ref|); the augmentation's warp on the card (bf16 rows and output) vs
+# the CPU's (fp32): two roundings of half a bf16 step; the PNG tree
+# (identities, clips, frames) and its repeats: 3 steps an epoch at batch 8
+AUG_SIZE = 256
+AUG_TOL = {"float32": 1e-5, "bfloat16": 2.0 ** -7}
+AUG_WARP_TOL = 2.0 ** -7
+TRAIN_TREE, TRAIN_REPEATS = (4, 2, 6), 6
 
 
 class PhaseError(RuntimeError):
@@ -274,18 +305,19 @@ def phase_device():
     print(f"[device] {card}; torch {torch.__version__}, CUDA {torch.version.cuda}, "
           f"{torch.cuda.get_device_name(0)} x{torch.cuda.device_count()}")
     print(f"[device] numerics {numerics.apply()}")
-    print(f"[device] optional packages (printed only: the evaluation path needs none of "
-          f"them): {json.dumps(optional_packages())}")
+    print(f"[device] packages of the JAX package's data path (printed only: the port reads "
+          f"PNG through PIL, --cpu_aug needs cv2, --tensorboard tensorboardX): "
+          f"{json.dumps(optional_packages())}")
     return card
 
 
 def optional_packages():
     """Whether each package that the JAX package's data path imports
-    (imageio, PIL, cv2, pandas) imports here: name -> version, or the
-    error."""
+    (imageio, PIL, cv2, pandas, matplotlib, tensorboardX) imports here:
+    name -> version, or the error."""
     import importlib
     out = {}
-    for name in ("imageio", "PIL", "cv2", "pandas"):
+    for name in ("imageio", "PIL", "cv2", "pandas", "matplotlib", "tensorboardX"):
         try:
             out[name] = getattr(importlib.import_module(name), "__version__", "imports")
         except Exception as e:                    # printed, never fatal
@@ -1268,6 +1300,220 @@ def phase_eval(card):
     return counts, n1, rates
 
 
+def _aug_site():
+    """Kernel 1 at the on-device augmentation's call: seeded frames with
+    grain, [8,1,256,256,3] at K1 = 1 on the homography coordinates of
+    data/device_aug.frame_draws (a seeded generator on the card), fp32 and
+    bf16, against its plain version; timed as phase 3 times it, with
+    F.grid_sample (2-D, border padding, align_corners) on the same frames
+    and samples as a yardstick.  Then the augmentation on the card (bf16
+    rows into kernel 1) against the port's on the CPU (fp32 rows, the
+    plain version) with the same draws: the warp within the bf16 rounding
+    of its rows and output (AUG_WARP_TOL of max|ref|), the colour jitter
+    and flip on the card's warped frames within 1e-5, and the whole (the
+    jitter's gain carries the warp's rounding) printed."""
+    import numpy as np
+    import torch
+    import torch.nn.functional as F
+    from facevae_tpu_torch.config import DataConfig
+    from facevae_tpu_torch.data import device_aug
+    from facevae_tpu_torch.data.synthetic import smooth_frames
+    from facevae_tpu_torch.ops import fast_warp as fw
+    from facevae_tpu_torch.probes.common import graph_ms
+    N, S = N_BATCH, AUG_SIZE
+    cfg = DataConfig(use_flip=True)
+    g = torch.Generator(device="cuda").manual_seed(12)
+    draws = device_aug.frame_draws(g, N, S, cfg)
+    gx, gy = device_aug._warp_coords(draws.homography, S, S)
+    coords = [gx[:, None].contiguous(), gy[:, None].contiguous()]
+    coords.append(torch.zeros_like(coords[0]))
+    frames = torch.from_numpy(np.stack(smooth_frames(N, S, 12, noise=8))).cuda().float() / 255
+    grid = torch.stack([gx / (S - 1) * 2 - 1, gy / (S - 1) * 2 - 1], -1).reshape(N, S, S, 2)
+    rows = {}
+    for dname in BOTH:
+        dtype = getattr(torch, dname)
+        x = frames.to(dtype)[:, None].contiguous()
+        nchw = frames.to(dtype).permute(0, 3, 1, 2).contiguous()
+        grid_d = grid.to(dtype)
+        kernel = lambda: fw.warp_multi_pixel_cuda(x, *coords, (1, S, S))      # noqa: E731
+        plain = lambda: fw.warp_multi_pixel_plain(x, *coords, (1, S, S))      # noqa: E731
+        library = lambda: F.grid_sample(nchw, grid_d, mode="bilinear",        # noqa: E731
+                                        padding_mode="border", align_corners=True)
+        out, ref = kernel(), plain()
+        torch.cuda.synchronize()
+        check(out.shape == ref.shape and out.dtype == ref.dtype and bool(torch.isfinite(out).all()),
+              f"kernel 1 at the aug site {dname}: {tuple(out.shape)} {out.dtype}")
+        err = (out.float() - ref.float()).abs().max().item()
+        scale = ref.float().abs().max().item()
+        r = dict(err=err, scale=scale, tol=AUG_TOL[dname] * scale,
+                 differ=int((out != ref).sum()), ms=graph_ms(kernel), plain_ms=cuda_ms(plain),
+                 library_ms=graph_ms(library), shape=(N, 1, S, S, 3), K1=1)
+        r["bound_ms"], r["bound_by"] = _bound_ms("fwd", N, 1, S, S, 3, 1, x.element_size())
+        rows[dname] = r
+        print(f"[train_loop] warp_fwd aug x[{N},1,{S},{S},3] K1=1 {dname} (homography "
+              f"coordinates from frame_draws): max|err| {err:.3e} (limit {r['tol']:.3e}, "
+              f"max|ref| {scale:.3f}; {r['differ']} of {out.numel()} outputs differ); device "
+              f"{r['ms']:.4f} ms, plain {r['plain_ms']:.4f}, F.grid_sample 2-D border "
+              f"{r['library_ms']:.4f}, bound {r['bound_ms']:.4f} ms ({r['bound_by']})")
+        check(err <= r["tol"], f"kernel 1 at the aug site {dname}: {err:.3e} > {r['tol']:.3e}")
+
+    # the augmentation: card (bf16 rows into kernel 1) vs the port on the CPU (fp32)
+    cpu_draws = device_aug.FrameDraws(*(t.cpu() for t in draws))
+    fw.reset_launch_counts()
+    warped = device_aug._warp_batch(frames, gx, gy)
+    out = device_aug.apply_augmentation(frames, draws, cfg)
+    torch.cuda.synchronize()
+    counts = dict(fw.launches)
+    cpu_gx, cpu_gy = device_aug._warp_coords(cpu_draws.homography, S, S)
+    ref_warped = device_aug._warp_batch(frames.cpu(), cpu_gx, cpu_gy)
+    ref = device_aug.apply_augmentation(frames.cpu(), cpu_draws, cfg)
+    jitter = device_aug._color_jitter(warped, draws)
+    jitter_ref = device_aug._color_jitter(warped.cpu(), cpu_draws)
+    flips = cpu_draws.flip
+    res = {}
+    for name, a, b, tol in (("warp", warped, ref_warped, AUG_WARP_TOL),
+                            ("jitter", jitter, jitter_ref, 1e-5), ("whole", out, ref, None)):
+        err = (a.cpu() - b).abs().max().item()
+        res[name] = (err, b.abs().max().item(), tol)
+    print(f"[train_loop] augmentation on the card (bf16 rows) vs the port on the CPU (fp32), "
+          f"same draws, {N} frames of {S}x{S}, {int(flips.sum())} flipped: warp max|err| "
+          f"{res['warp'][0]:.3e} (limit 2^-7 of max|ref| {res['warp'][1]:.3f}); colour jitter "
+          f"on the card's warped frames {res['jitter'][0]:.3e} (limit 1e-5 of "
+          f"{res['jitter'][1]:.3f}); the whole augmentation {res['whole'][0]:.3e} (the "
+          f"jitter's gain on the warp's rounding); launches {counts}")
+    for name, (err, scale, tol) in res.items():
+        if tol is not None:
+            check(err <= tol * scale, f"augmentation {name} card vs CPU: {err:.3e} > "
+                                      f"{tol * scale:.3e}")
+    check(counts["warp_fwd"] == 2 and counts["warp_fwd_plain"] == 0,
+          f"the card's augmentation launches {counts}: want kernel 1 once a batch")
+    return rows
+
+
+def _loop_counts(counts, dtype, steps, aug):
+    """Per-step launches of the training loop: the step's (STEP_LAUNCHES)
+    and kernel 1 ``aug`` more times (the fused augmentation's two batches)."""
+    want = _want(counts, dtype, steps)
+    want["warp_fwd"] += aug * steps
+    return want
+
+
+def _train_cli(argv):
+    """facevae_tpu_torch.train's main(argv) with the launch counts set to 0
+    before it and read after: (state, epoch records, counts)."""
+    import torch
+    from facevae_tpu_torch.ops import fast_warp
+    from facevae_tpu_torch.train import cli
+    fast_warp.reset_launch_counts()
+    state, records = cli.main(argv)
+    torch.cuda.synchronize()
+    return state, records, dict(fast_warp.launches)
+
+
+def _log_pairs(path):
+    """The add.txt lines of a log: [(G line, D line)] with every G / D
+    column finite but K, which is nan when it never fired (quirk q4)."""
+    import math
+    lines = Path(path).read_text().splitlines()
+    pairs = list(zip(lines[::2], lines[1::2]))
+    for g_line, d_line in pairs:
+        check(g_line[0] == "G" and d_line[0] == "D", f"log lines {g_line[:12]} / {d_line[:12]}")
+        for line in (g_line, d_line):
+            cols = dict(c.split(" - ") for c in line.split(") ", 1)[1].split("; "))
+            check(all(math.isfinite(float(v)) for k, v in cols.items() if k != "K"),
+                  f"non-finite loss in the log: {line}")
+        check("; K - " in g_line, f"no K column: {g_line}")
+    return pairs
+
+
+def phase_train_loop(card):
+    """python -m facevae_tpu_torch.train in-process (train/cli.main) at full
+    width on a PNG tree that PIL writes, and kernel 1 at the augmentation's
+    site (_aug_site)."""
+    import math
+    import os
+    import tempfile
+    import torch
+    from PIL import Image
+    from facevae_tpu_torch.data.image_io import read_png
+    from facevae_tpu_torch.data.synthetic import write_training_tree
+    aug_rows = _aug_site()
+    ids, clips, frames = TRAIN_TREE
+    tmp = tempfile.TemporaryDirectory()
+    try:
+        root = write_training_tree(f"{tmp.name}/data", AUG_SIZE, ids, clips, frames,
+                                   write=lambda p, img: Image.fromarray(img).save(p), noise=8)
+        paths = sorted(str(p) for p in Path(root, "train").rglob("*.png"))
+        t0 = time.perf_counter()
+        for p in paths:
+            read_png(p)
+        read_ms = (time.perf_counter() - t0) * 1e3 / len(paths)
+        steps = ids * TRAIN_REPEATS // N_BATCH
+        print(f"[train_loop] PNG tree: {ids} identities x {clips} clips x {frames} frames at "
+              f"{AUG_SIZE}x{AUG_SIZE} (+-8 levels of grain, PIL {Image.__version__}'s row "
+              f"filters), {sum(os.path.getsize(p) for p in paths)} bytes in train/; read_png "
+              f"{read_ms:.2f} ms a frame on the host; {steps} steps an epoch at batch {N_BATCH}")
+
+        def argv(run, *extra):
+            return ["--root_dir", root, "--batch_size", str(N_BATCH), "--num_repeats",
+                    str(TRAIN_REPEATS), "--keep_checkpoints", "1", "--remat", "false",
+                    "--ckp_dir", f"{tmp.name}/{run}/ckp", "--vis_dir", f"{tmp.name}/{run}/vis",
+                    "--log_file", f"{tmp.name}/{run}/log.txt", *extra]
+
+        total, runs = {}, {}
+
+        def run(tag, args, dtype, aug, epochs, first):
+            state, records, counts = _train_cli(args)
+            want = _loop_counts(counts, dtype, epochs * steps, aug)
+            for r in records:
+                print(f"[train_loop] {tag}: {card}: epoch {r['epoch']}: {r['frames_per_s']:.3f} "
+                      f"frames/s (steps {r['steps_s']:.2f} s, ckpt-snap {r['ckpt_s']:.2f} s, vis "
+                      f"{r['vis_s']:.2f} s); the loop's thread waited {r['wait_s']:.3f} s on the "
+                      f"prefetch queue ({r['wait_s'] / r['steps_s']:.1%} of the steps' time)")
+            print(f"[train_loop] {tag}: launches {counts}")
+            check([(r["epoch"], r["first_step"]) for r in records] == first,
+                  f"{tag}: epochs / first steps {[(r['epoch'], r['first_step']) for r in records]}"
+                  f", want {first}")
+            check(counts == want, f"{tag}: launches {counts}, want {want}")
+            for k, v in counts.items():
+                total[k] = total.get(k, 0) + v
+            runs[tag] = records
+            return state
+
+        state = run("fp32", argv("a", "--num_epochs", "2"), "float32", 2, 2,
+                    [(0, 0), (1, steps)])
+        check(state.step == 2 * steps, f"fp32 run ends at step {state.step}")
+        pairs = _log_pairs(f"{tmp.name}/a/log.txt")
+        check([(g[:10], d[:10]) for g, d in pairs] == [("G00000000)", "D00000000)"),
+                                                       ("G00000001)", "D00000001)")],
+              f"log lines {pairs}")
+        vis = sorted(os.listdir(f"{tmp.name}/a/vis"))
+        ckps = sorted(os.listdir(f"{tmp.name}/a/ckp"))
+        check(vis == ["00000000-rec.png", "00000001-rec.png"], f"visualizations {vis}")
+        check(ckps == ["00000001-checkpoint.msgpack"], f"epoch files kept {ckps}")
+        print(f"[train_loop] fp32: log {pairs[-1][0][:60]}...; {vis}; kept {ckps}")
+        del state
+        gc.collect()
+        torch.cuda.empty_cache()
+        state = run("resume", argv("a", "--num_epochs", "3", "--ckp", "-1"), "float32", 2, 1,
+                    [(2, 2 * steps)])
+        check(state.step == 3 * steps, f"resumed run ends at step {state.step}")
+        del state
+        gc.collect()
+        torch.cuda.empty_cache()
+        run("bf16 device_cache", argv("c", "--num_epochs", "1", "--bf16", "true",
+                                      "--device_cache", "true"), "bfloat16", 2, 1, [(0, 0)])
+        gc.collect()
+        torch.cuda.empty_cache()
+        run("cpu_aug", argv("d", "--num_epochs", "1", "--cpu_aug", "true"), "float32", 0, 1,
+            [(0, 0)])
+        check(all(math.isfinite(r["frames_per_s"]) for rs in runs.values() for r in rs),
+              "non-finite frames/s")
+    finally:
+        tmp.cleanup()
+    return total, aug_rows, {"read_png_ms_per_frame": read_ms, "epochs": runs}
+
+
 def _probe_row(name, out, ref, r, plain_ms, site):
     """One kernel-vs-plain comparison of phase 9 (out, ref: the two results
     on the same inputs; r: the probe's run() figures)."""
@@ -1409,6 +1655,7 @@ def main() -> int:
                          ("checkpoint", lambda: phase_checkpoint(card)),
                          ("eval", lambda: phase_eval(card)),
                          ("train_bf16", lambda: _train(card, "bfloat16")),
+                         ("train_loop", lambda: phase_train_loop(card)),
                          ("probes", phase_probes)):
             # a train state lives in reference cycles, which only the
             # collector frees: collect them, so that a phase's peak memory
@@ -1426,6 +1673,8 @@ def main() -> int:
                 det_paths = out                    # the deterministic mode's steps
             elif name == "eval":
                 paths["eval"], eval_n1, eval_rates = out
+            elif name == "train_loop":
+                paths["train_loop"], aug_rows, loop_rates = out
             elif name == "probes":
                 probe_rows, probe_counts = out
     except PhaseError as e:
@@ -1450,6 +1699,10 @@ def main() -> int:
         if name in eval_n1:            # kernels 1 and 4 at the eval path's N = 1 calls
             kernels[-1]["eval_n1"] = {k: eval_n1[name][k] for k in (
                 "err", "ms", "plain_ms", "library_ms", "bound_ms", "bound_by")}
+        if name == "warp_fwd":         # kernel 1 at the training augmentation's call
+            kernels[-1]["aug"] = {d: {k: r[k] for k in (
+                "err", "ms", "plain_ms", "library_ms", "bound_ms", "bound_by")}
+                for d, r in aug_rows.items()}
     for name, (source, replaces) in PROBE_KERNELS.items():
         # probe 8: its default mode (banded) at both thetas; probe 9: its seven cases
         mine = [r for r in probe_rows if r["name"] == name and r.get("mode", "banded") == "banded"]
@@ -1465,6 +1718,7 @@ def main() -> int:
             kernels[-1]["floor_ms"] = sum(r["floor_ms"] for r in mine)
     print(json.dumps({"kernels": kernels}))
     print(f"[eval] {json.dumps({k: round(v, 3) for k, v in eval_rates.items()})}")
+    print(f"[train_loop] {json.dumps(loop_rates)}")
     print(f"[done] {time.perf_counter() - t_all:.1f} s; phases {json.dumps(phase_s)}")
     print(smi())
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

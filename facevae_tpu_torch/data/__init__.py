@@ -1,5 +1,8 @@
-"""The evaluation data path (port of facevae_tpu/data, without the training
-augmentation and loader): the frame datasets and the port's own PNG / GIF
-I/O."""
+"""The data path (port of facevae_tpu/data): the frame datasets, the
+prefetching loader and the port's own PNG / GIF I/O.  The CPU augmentation
+(data/augmentation.py, cv2 and PIL), the on-device augmentation
+(data/device_aug.py) and the device frame cache (data/device_cache.py) are
+imported from their modules."""
 from facevae_tpu_torch.data.dataset import DatasetRepeater, FramesDataset, PairedDataset, read_video
 from facevae_tpu_torch.data.image_io import read_png, write_gif, write_png
+from facevae_tpu_torch.data.loader import PrefetchLoader

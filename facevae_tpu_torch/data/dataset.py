@@ -1,28 +1,35 @@
-"""Frame datasets for evaluation (a copy of facevae_tpu/data/dataset.py, not
-an import of it: the port imports nothing of the JAX package).
+"""Frame datasets (a copy of facevae_tpu/data/dataset.py, not an import of
+it: the port imports nothing of the JAX package).
 
 - FramesDataset: videos are PNG-frame directories (or .mp4 / .gif files);
   the train / test split is the root's train/ and test/ subdirectories, or
   else an 80/20 split shuffled by RandomState(random_seed).  With
   is_train=False an item is the whole video, [T,H,W,3] float32 in [0,1].
-  is_train=True (two random frames and their augmented copies) needs the
-  training augmentation, which is not ported yet: it raises
-  NotImplementedError (ROADMAP Queue 1, item 2).
+  With is_train=True, identity sampling picks a random clip of an identity
+  (``name + "*"`` globbed) and an item is two random frames (sorted, with
+  replacement): with on_device_aug, the two raw uint8 frames of a PNG
+  directory (the step augments them on the device); otherwise the two
+  float frames and their copies through the CPU augmentation
+  (data/augmentation.py).  Every draw is from numpy's global RNG (and
+  Python's ``random`` in the augmentation) in the JAX package's order, so
+  seeded items are equal bit for bit.
 - DatasetRepeater: the I/O amortization wrapper.
 - PairedDataset: animation pairs from a random index grid
   (RandomState(seed)), or from the dataset's pairs CSV (columns ``source``,
   ``driving``), read with the csv module: rows whose two names are both
   videos of the split, in file order, as pandas' isin filter keeps them.
 
-PNG frames go through the port's own decoder (data/image_io.read_png): the
-card's machine has no imageio, which the JAX package reads frames with.
-Other frame formats and .mp4 / .gif videos go through imageio where it
-imports, and raise an ImportError that names it where it does not.
+PNG frames go through the port's own reader (data/image_io.read_png, PIL's
+decoder): the card's machine has no imageio, which the JAX package reads
+frames with.  Other frame formats and .mp4 / .gif videos go through imageio
+where it imports, and raise an ImportError that names it where it does not.
 """
 from __future__ import annotations
 
 import csv
+import glob
 import os
+from typing import Optional
 
 import numpy as np
 
@@ -73,33 +80,92 @@ def read_video(name: str, frame_shape=(256, 256, 3)) -> np.ndarray:
     raise ValueError(f"Unknown file extension: {name}")
 
 
+_DEFAULT_AUG = {
+    "rotation_param": {"degrees": 30},
+    "perspective_param": {"pers_num": 30, "enlarge_num": 40},
+    "jitter_param": {"brightness": 0.1, "contrast": 0.1, "saturation": 0.1, "hue": 0.1},
+}
+
+
 class FramesDataset:
-    def __init__(self, root_dir: str, frame_shape=(256, 256, 3), is_train: bool = True,
-                 random_seed: int = 0, pairs_list=None):
-        if is_train:
-            raise NotImplementedError(
-                "FramesDataset(is_train=True) needs the training augmentation, which is "
-                "not ported yet (ROADMAP Queue 1, item 2); evaluation reads is_train=False")
+    def __init__(self, root_dir: str, frame_shape=(256, 256, 3), id_sampling: bool = True,
+                 is_train: bool = True, random_seed: int = 0, pairs_list=None,
+                 augmentation_params: Optional[dict] = None,
+                 on_device_aug: bool = False):
+        self.on_device_aug = on_device_aug
         self.root_dir = root_dir
         self.frame_shape = tuple(frame_shape)
         self.pairs_list = pairs_list
-        self.is_train = is_train
+        self.id_sampling = id_sampling
         videos = sorted(os.listdir(root_dir))
+
         if os.path.exists(os.path.join(root_dir, "train")):
             assert os.path.exists(os.path.join(root_dir, "test")), "train/ without test/"
-            self.videos = sorted(os.listdir(os.path.join(root_dir, "test")))
-            self.root_dir = os.path.join(root_dir, "test")
+            if id_sampling:
+                train_videos = sorted({os.path.basename(v).split("#")[0]
+                                       for v in os.listdir(os.path.join(root_dir, "train"))})
+            else:
+                train_videos = sorted(os.listdir(os.path.join(root_dir, "train")))
+            test_videos = sorted(os.listdir(os.path.join(root_dir, "test")))
+            self.root_dir = os.path.join(root_dir, "train" if is_train else "test")
         else:
             rng = np.random.RandomState(random_seed)
             videos = list(videos)
             rng.shuffle(videos)
-            self.videos = videos[:max(1, int(0.2 * len(videos)))]
+            n_test = max(1, int(0.2 * len(videos)))
+            test_videos, train_videos = videos[:n_test], videos[n_test:]
+
+        self.videos = train_videos if is_train else test_videos
+        self.is_train = is_train
+        if is_train:
+            # imported here: evaluation needs neither cv2 nor PIL's jitter
+            from facevae_tpu_torch.data.augmentation import AllAugmentationTransform
+            params = _DEFAULT_AUG if augmentation_params is None else augmentation_params
+            self.transform = AllAugmentationTransform(**params)
+        else:
+            self.transform = None
 
     def __len__(self):
         return len(self.videos)
 
+    def _resolve_path(self, idx: int) -> str:
+        name = self.videos[idx]
+        if self.is_train and self.id_sampling:
+            candidates = (glob.glob(os.path.join(self.root_dir, name + "*.mp4"))
+                          or glob.glob(os.path.join(self.root_dir, name + "*")))
+            return np.random.choice(candidates)
+        return os.path.join(self.root_dir, name)
+
     def __getitem__(self, idx: int):
-        video = read_video(os.path.join(self.root_dir, self.videos[idx]), self.frame_shape)
+        path = self._resolve_path(idx)
+        if self.is_train and self.on_device_aug and os.path.isdir(path):
+            # two raw uint8 frames, no CPU transform, no float cast
+            frames = sorted(os.listdir(path))
+            frame_idx = np.sort(np.random.choice(len(frames), replace=True, size=2))
+            a = _imread_raw(os.path.join(path, frames[frame_idx[0]]))
+            b = _imread_raw(os.path.join(path, frames[frame_idx[1]]))
+            return np.ascontiguousarray(a), np.ascontiguousarray(b)
+        if self.is_train and os.path.isdir(path):
+            frames = sorted(os.listdir(path))
+            frame_idx = np.sort(np.random.choice(len(frames), replace=True, size=2))
+            video = [_imread_float(os.path.join(path, frames[i])) for i in frame_idx]
+        else:
+            video = read_video(path, self.frame_shape)
+            if self.is_train:
+                frame_idx = np.sort(np.random.choice(len(video), replace=True, size=2))
+                video = [video[i] for i in frame_idx]
+
+        if self.is_train:
+            source = np.asarray(video[0], np.float32)
+            driving = np.asarray(video[1], np.float32)
+            if self.on_device_aug:        # mp4/gif source: frames are float
+                return source, driving    # already; aug still runs on device
+            if self.transform is not None:
+                source_aug = np.asarray(self.transform([video[0]])[0], np.float32)
+                driving_aug = np.asarray(self.transform([video[1]])[0], np.float32)
+            else:
+                source_aug, driving_aug = source, driving
+            return source, driving, source_aug, driving_aug
         return np.asarray(video, np.float32)         # [T,H,W,3] for eval
 
 

@@ -1,15 +1,15 @@
-"""The port's image I/O, in numpy and zlib only: the card's machine has no
-imageio, through which facevae_tpu/data/dataset.py reads frames and the
-root evaluate.py writes gifs (imageio.mimsave).  PIL, cv2 and pandas do
-import there (chip_smoke.py phase 1 prints them); nothing here uses them.
+"""The port's image I/O: the card's machine has no imageio, through which
+facevae_tpu/data/dataset.py reads frames and the root evaluate.py writes
+gifs (imageio.mimsave).  PIL, cv2 and pandas import there (chip_smoke.py
+phase 1 prints them).
 
-- read_png: non-interlaced PNG of colour types 0 (8-bit grey), 2 (8-bit
-  RGB), 3 (palette, 1/2/4/8-bit), 4 (8-bit grey + alpha) and 6 (8-bit
-  RGBA), every row filter (None, Sub, Up, Average, Paeth).  It returns what
-  imageio.v2.imread returns for the same file: uint8 [H,W] (grey) or
-  [H,W,C], the palette expanded to RGB, tRNS ignored.  16-bit, grey below
-  8 bits and interlaced (Adam7) files raise ValueError naming the case.
-- write_png: 8-bit RGB, every row filter 0.
+- read_png: PNG decoded by PIL's C decoder, as imageio.v2.imread (which
+  reads PNG through PIL itself) returns it: uint8 [H,W] (grey) or [H,W,C],
+  a palette converted to its palette's mode (RGB), tRNS ignored.  The
+  chunks are walked first (CRC checked): 16-bit, grey below 8 bits and
+  interlaced (Adam7) files raise ValueError naming the case.  PIL is
+  needed: without it this module does not import.
+- write_png: 8-bit RGB, every row filter 0 (numpy and zlib).
 - write_gif: GIF89a with one global 256-colour palette, 3-3-2 bits of
   R, G, B, each pixel mapped to its nearest colour (so every channel lands
   within half a palette step: 255/14 for R and G, 255/6 for B), LZW with
@@ -19,14 +19,16 @@ import there (chip_smoke.py phase 1 prints them); nothing here uses them.
 """
 from __future__ import annotations
 
+import io
 import struct
 import zlib
 from typing import Sequence, Union
 
 import numpy as np
+from PIL import Image
 
 PNG_SIGNATURE = b"\x89PNG\r\n\x1a\n"
-_CHANNELS = {0: 1, 2: 3, 3: 1, 4: 2, 6: 4}        # PNG colour type -> samples a pixel
+_COLOUR_TYPES = (0, 2, 3, 4, 6)      # grey, RGB, palette, grey + alpha, RGBA
 
 
 def _chunks(data: bytes):
@@ -47,57 +49,6 @@ def _chunks(data: bytes):
     raise ValueError("truncated PNG: no IEND chunk")
 
 
-def _paeth(a, b, c):
-    p = a + b - c
-    pa, pb, pc = np.abs(p - a), np.abs(p - b), np.abs(p - c)
-    return np.where((pa <= pb) & (pa <= pc), a, np.where(pb <= pc, b, c))
-
-
-def _unfilter(raw: bytes, height: int, stride: int, bpp: int) -> np.ndarray:
-    """The scanlines [height, stride] uint8 with each row's filter undone.
-    bpp: bytes a filter unit (a pixel at 8 bits, else 1 byte)."""
-    rows = np.frombuffer(raw, np.uint8)
-    if rows.size < height * (stride + 1):
-        raise ValueError(f"truncated PNG image data: {rows.size} bytes for {height} rows "
-                         f"of {stride + 1}")
-    rows = rows[:height * (stride + 1)].reshape(height, stride + 1)
-    kinds, f = rows[:, 0], rows[:, 1:]
-    if kinds.max(initial=0) > 4:
-        raise ValueError(f"unknown PNG row filter {int(kinds.max())}")
-    if not np.isin(kinds, (3, 4)).any():
-        # None, Sub and Up only: a row at a time, uint8 arithmetic wrapping mod 256
-        out = np.empty((height, stride), np.uint8)
-        prev = np.zeros(stride, np.uint8)
-        for y in range(height):
-            r = f[y]
-            if kinds[y] == 1:
-                r = np.cumsum(r.reshape(-1, bpp), axis=0, dtype=np.uint8).reshape(-1)
-            elif kinds[y] == 2:
-                r = r + prev
-            out[y] = r
-            prev = out[y]
-        return out
-    # Average and Paeth read the unit to the left, above and above-left:
-    # sweep the anti-diagonals x + y = t.  Skewed, S[y + 1, t + 2] holds row
-    # y's unit x = t - y, so anti-diagonal t is a column and its left, up and
-    # up-left neighbours are columns t + 1, t + 1 and t of the rows above
-    # (zeros stand in for the units left of x = 0 and the row above y = 0).
-    units = stride // bpp
-    y_all = np.arange(height)[:, None]
-    F = np.zeros((height, height + units, bpp), np.int32)
-    F[y_all, y_all + np.arange(units)] = f.reshape(height, units, bpp)
-    S = np.zeros((height + 1, height + units + 1, bpp), np.int32)
-    kinds = kinds.astype(np.int32)[:, None]
-    for t in range(height + units - 1):
-        y0, y1 = max(0, t - units + 1), min(height - 1, t) + 1
-        a, b, c = S[y0 + 1:y1 + 1, t + 1], S[y0:y1, t + 1], S[y0:y1, t]
-        k = kinds[y0:y1]
-        pred = np.where(k == 4, _paeth(a, b, c),
-                        np.where(k == 3, (a + b) >> 1, np.where(k == 2, b, np.where(k == 1, a, 0))))
-        S[y0 + 1:y1 + 1, t + 2] = (F[y0:y1, t] + pred) & 255
-    return S[1 + y_all, 2 + y_all + np.arange(units)].astype(np.uint8).reshape(height, stride)
-
-
 def read_png(source: Union[str, bytes, bytearray, memoryview]) -> np.ndarray:
     """A PNG file (a path, or its bytes) as imageio.v2.imread returns it."""
     if isinstance(source, (bytes, bytearray, memoryview)):
@@ -107,20 +58,16 @@ def read_png(source: Union[str, bytes, bytearray, memoryview]) -> np.ndarray:
             data = fh.read()
     if not data.startswith(PNG_SIGNATURE):
         raise ValueError("not a PNG file (no PNG signature)")
-    header, palette, idat = None, None, []
+    header = None
     for kind, payload in _chunks(data):
         if kind == b"IHDR":
             header = struct.unpack(">IIBBBBB", payload)
-        elif kind == b"PLTE":
-            palette = np.frombuffer(payload, np.uint8).reshape(-1, 3)
-        elif kind == b"IDAT":
-            idat.append(payload)
-        elif kind[0] < 97 and kind != b"IEND":   # an unknown critical chunk
+        elif kind[0] < 97 and kind not in (b"PLTE", b"IDAT", b"IEND"):
             raise ValueError(f"unsupported critical PNG chunk {kind!r}")
     if header is None:
         raise ValueError("PNG without an IHDR chunk")
-    width, height, depth, ctype, compression, filtering, interlace = header
-    if ctype not in _CHANNELS or compression or filtering:
+    _, _, depth, ctype, compression, filtering, interlace = header
+    if ctype not in _COLOUR_TYPES or compression or filtering:
         raise ValueError(f"unsupported PNG: colour type {ctype}, compression {compression}, "
                          f"filter method {filtering}")
     if depth == 16:
@@ -130,23 +77,10 @@ def read_png(source: Union[str, bytes, bytearray, memoryview]) -> np.ndarray:
     if depth != 8 and not (ctype == 3 and depth in (1, 2, 4)):
         raise ValueError(f"{depth}-bit PNG of colour type {ctype} is not supported "
                          "(8-bit, or a 1/2/4-bit palette)")
-    channels = _CHANNELS[ctype]
-    stride = (width * channels * depth + 7) // 8
-    rows = _unfilter(zlib.decompress(b"".join(idat)), height, stride,
-                     max(1, channels * depth // 8))
-    if depth < 8:
-        bits = np.unpackbits(rows, axis=1).reshape(height, -1, depth)[:, :width]
-        rows = (bits * (1 << np.arange(depth - 1, -1, -1, dtype=np.uint8))).sum(
-            -1, dtype=np.uint8)
-    img = rows.reshape(height, width, channels)
-    if ctype == 3:
-        if palette is None:
-            raise ValueError("palette PNG without a PLTE chunk")
-        if int(img.max(initial=0)) >= len(palette):
-            raise ValueError(f"PNG palette index {int(img.max())} past its "
-                             f"{len(palette)} entries")
-        return palette[img[..., 0]]
-    return img[..., 0] if channels == 1 else img
+    with Image.open(io.BytesIO(data)) as im:       # decoded before the file closes
+        if im.mode == "P":                          # imageio's conversion of a palette
+            im = im.convert(im.palette.mode)
+        return np.array(im)
 
 
 def _chunk(kind: bytes, payload: bytes) -> bytes:

@@ -42,3 +42,17 @@ def write_dataset(root: str, size: int, videos: int, frames: int,
             for t, img in enumerate(smooth_frames(n, size, seed, noise)):
                 write(os.path.join(root, split, name, f"{t:07d}.png"), img)
     return root
+
+
+def write_training_tree(root: str, size: int, ids: int, clips: int, frames: int,
+                        write: Callable[[str, np.ndarray], None] = write_png,
+                        noise: int = 0) -> str:
+    """train/ with ``ids`` identities of ``clips`` clips (``id<i>#clip<c>``)
+    of ``frames`` PNG frames each, test/ with one video of ``frames``, each
+    frame written by ``write(path, frame)``; returns root."""
+    names = [("train", f"id{i}#clip{c}") for i in range(ids) for c in range(clips)]
+    for j, (split, name) in enumerate(names + [("test", "id0#clip0")]):
+        os.makedirs(os.path.join(root, split, name))
+        for t, img in enumerate(smooth_frames(frames, size, 100 + j, noise)):
+            write(os.path.join(root, split, name, f"{t:07d}.png"), img)
+    return root

@@ -1,0 +1,5 @@
+"""python -m facevae_tpu_torch.train: the port's training CLI (train/cli.py)."""
+from facevae_tpu_torch.train.cli import main
+
+if __name__ == "__main__":
+    main()

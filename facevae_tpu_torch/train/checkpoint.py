@@ -162,9 +162,17 @@ class AsyncCheckpointer:
         self.wait()
         with torch.no_grad():
             snap = _map(torch.clone, _tensors(state))
+        # the writer copies to the host on its own thread's stream: it waits
+        # for the clones, queued on this thread's current stream, to finish
+        done = None
+        if any(p.is_cuda for net in state.nets.values() for p in net.parameters()):
+            done = torch.cuda.Event()
+            done.record()
 
         def write():
             try:
+                if done is not None:
+                    done.synchronize()
                 _write(ckp_dir, snap, epoch, keep)
             except Exception as e:                # raised again by wait()
                 self._error = e

@@ -7,7 +7,8 @@ kernels (under torch.use_deterministic_algorithms, and against the
 fixed-point emulation of tests/torch_parity.py bit for bit), the wrappers'
 refusals, the tiny golden pipeline through
 the forward kernels, tiny fp32 and bf16 training steps through all of
-them, and an epoch checkpoint saved on the card, loaded on the CPU and
+them (also with the fused augmentation), kernel 1 at the augmentation's
+call, and an epoch checkpoint saved on the card, loaded on the CPU and
 back.  Every test skips without a CUDA device.
 
 This file imports no JAX, so it also runs on a machine without it:
@@ -642,24 +643,65 @@ STEP_LAUNCHES = {"float32": {"warp_fwd": 1, "warp_bwd_dgrid": 1, "warp_bwd_dx": 
                  "bfloat16": {"warp_fwd": 3, "warp_bwd_dgrid": 2, "warp_bwd_dx": 2}}
 
 
+@pytest.mark.parametrize("fused", [False, True], ids=["four_tuple", "fused_aug"])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-def test_tiny_training_step_runs_through_the_kernels(dtype):
+def test_tiny_training_step_runs_through_the_kernels(dtype, fused):
     """A tiny_config() step on the card: finite losses, the warp kernels
-    launched as STEP_LAUNCHES says, their plain versions never; parameters
-    and Adam state stay fp32."""
+    launched as STEP_LAUNCHES says (with the fused augmentation, kernel 1
+    twice more: one launch a batch of views), their plain versions never;
+    parameters and Adam state stay fp32."""
     cfg = tiny_config()
     cfg = dataclasses.replace(cfg, model=dataclasses.replace(cfg.model, compute_dtype=dtype))
     state = create_train_state(cfg, device="cuda")
     g = torch.Generator(device="cuda").manual_seed(0)
     batch = tuple(torch.rand(2, 64, 64, 3, generator=g, device="cuda") for _ in range(4))
+    if fused:
+        batch = tuple((b * 255).to(torch.uint8) for b in batch[:2])
     fast_warp.reset_launch_counts()
-    out = train_step(state, batch, generator=g)
+    out = train_step(state, batch, generator=g, fused_aug=fused)
     torch.cuda.synchronize()
     assert all(torch.isfinite(v) for v in {**out["losses_g"], **out["losses_d"]}.values())
-    assert fast_warp.launches == {**dict.fromkeys(fast_warp.launches, 0), **STEP_LAUNCHES[dtype]}
+    want = {**dict.fromkeys(fast_warp.launches, 0), **STEP_LAUNCHES[dtype]}
+    want["warp_fwd"] += 2 * fused
+    assert fast_warp.launches == want
     assert {p.dtype for m in state.nets.values() for p in m.parameters()} == {torch.float32}
     assert {v.dtype for opt in (state.g_opt, state.d_opt) for st in opt.state.values()
             for v in st.values()} == {torch.float32}
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("size", [48, 256])
+def test_kernel_1_matches_plain_at_the_augmentation_site(size, dtype):
+    """Kernel 1 at data/device_aug.py's call: frames [8,1,size,size,3] at
+    K1 = 1 on the homography coordinates of frame_draws (clamped to the
+    image): fp32 within 1e-5 of max|ref|; bf16 within one bf16 step at
+    max|ref|, at most 2^-7 of it (the same fp32 sum, in another order,
+    rounded to bf16).  On the card the augmentation sends bf16 rows through
+    the kernel, one launch a batch, and its warp lies within 2^-7 of
+    max|ref| of the fp32 warp on the CPU (the rows' and the output's
+    roundings, half a bf16 step each)."""
+    from facevae_tpu_torch.config import DataConfig
+    from facevae_tpu_torch.data import device_aug
+    g = torch.Generator(device="cuda").manual_seed(size)
+    draws = device_aug.frame_draws(g, 8, size, DataConfig())
+    gx, gy = device_aug._warp_coords(draws.homography, size, size)
+    coords = [gx[:, None].contiguous(), gy[:, None].contiguous()]
+    coords.append(torch.zeros_like(coords[0]))
+    assert float(gx.min()) >= 0 and float(gx.max()) <= size - 1
+    frames = torch.rand(8, size, size, 3, generator=g, device="cuda")
+    x = frames.to(dtype)[:, None].contiguous()
+    out = fast_warp.warp_multi_pixel_cuda(x, *coords, (1, size, size))
+    ref = fast_warp.warp_multi_pixel_plain(x, *coords, (1, size, size))
+    torch.cuda.synchronize()
+    assert out.dtype == dtype and out.shape == ref.shape and torch.isfinite(out).all()
+    assert_close(out.float(), ref.float(), 1e-5 if dtype == torch.float32 else 2.0 ** -7,
+                 f"aug site {size} {dtype}")
+    fast_warp.reset_launch_counts()
+    warped = device_aug._warp_batch(frames, gx, gy)
+    torch.cuda.synchronize()
+    assert fast_warp.launches["warp_fwd"] == 1 and fast_warp.launches["warp_fwd_plain"] == 0
+    cpu = device_aug._warp_batch(frames.cpu(), gx.cpu(), gy.cpu())
+    assert_close(warped.cpu(), cpu, 2.0 ** -7, f"aug warp card vs CPU {size}")
 
 
 def _state_tensors(state):

@@ -23,6 +23,7 @@ the CPU.
 import collections
 import importlib.util
 import os
+import random
 import struct
 import sys
 import types
@@ -282,17 +283,32 @@ def test_paired_dataset_csv_matches_the_jax_package(rows, number, split_root, tm
     assert [tuple(map(int, p)) for p in port.pairs] == [tuple(map(int, p)) for p in ref.pairs]
 
 
-def test_training_items_and_gif_videos_say_what_they_need(split_root, tmp_path, monkeypatch):
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1"):
-        dataset.FramesDataset(split_root)
-    frames = _frames(np.random.RandomState(11), 3)
-    write_gif(str(tmp_path / "v.gif"), frames)
-    assert np.array_equal(dataset.read_video(str(tmp_path / "v.gif")),
-                          jax_dataset.read_video(str(tmp_path / "v.gif")))
+def test_training_items_and_gif_videos_say_what_they_need(tmp_path, monkeypatch):
+    """A tree of .gif videos: the training items (two frames drawn from the
+    video, and their CPU-augmented copies) equal the JAX package's from the
+    same seeds; read_video matches; without imageio both raise an
+    ImportError naming it."""
+    rs = np.random.RandomState(11)
+    for split in ("train", "test"):
+        os.makedirs(tmp_path / split)
+        write_gif(str(tmp_path / split / "id0#a.gif"), _frames(rs, 3))
+    root, gif = str(tmp_path), str(tmp_path / "test" / "id0#a.gif")
+    assert np.array_equal(dataset.read_video(gif), jax_dataset.read_video(gif))
+    for on_device in (True, False):
+        items = []
+        for ds in (dataset.FramesDataset(root, on_device_aug=on_device),
+                   jax_dataset.FramesDataset(root, on_device_aug=on_device)):
+            random.seed(3)
+            np.random.seed(3)
+            items.append(ds[0])
+        assert len(items[0]) == len(items[1]) == (2 if on_device else 4)
+        assert all(np.array_equal(a, b) for a, b in zip(*items))
     monkeypatch.setitem(sys.modules, "imageio", None)
     monkeypatch.setitem(sys.modules, "imageio.v2", None)
     with pytest.raises(ImportError, match="imageio"):
-        dataset.read_video(str(tmp_path / "v.gif"))
+        dataset.read_video(gif)
+    with pytest.raises(ImportError, match="imageio"):
+        dataset.FramesDataset(root)[0]
 
 
 # -------------------------------------------------------------- the server

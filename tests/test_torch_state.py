@@ -140,7 +140,7 @@ def test_pretrained_teachers_refuse_what_the_jax_package_refuses(bad, error, fil
             assert np.array_equal(v.numpy(), seeded[k]), f"{n}.{k}"
 
 
-def test_train_vae_raises_from_the_step_and_the_default_config_steps(port_nets):
+def test_train_vae_step_samples_k_refuses_a_channel_first_eps_and_default_k_is_zero(port_nets):
     cfg = tiny_config()
     vae = dataclasses.replace(cfg, train=dataclasses.replace(cfg.train, train_vae=True),
                               loss=dataclasses.replace(cfg.loss, kl=1.0))

@@ -1,9 +1,10 @@
 #!/usr/bin/env python
-"""Where the PyTorch port's serving step, or its training step, spends its
-time, on one CUDA card.
+"""Where the PyTorch port's serving step, its training step or its training
+loop spends its time, on one CUDA card.
 
     python tools/profile_torch_serve.py [--batch 8] [--iters 5] [--out artifacts/profile_serve.json]
     python tools/profile_torch_serve.py --train [--dtype bfloat16] [--batch 8] [--iters 3] [--out ...]
+    python tools/profile_torch_serve.py --loop [--dtype bfloat16] [--steps 16] [--epochs 3] [--out ...]
 
 Full-width ModelConfig() (TF32 off, facevae_tpu_torch.numerics) with seeded
 random weights; serving runs fp32, training --dtype (float32, the default,
@@ -15,7 +16,19 @@ or bfloat16).  Reports, for a batch of --batch frames:
     warm-up steps) and the peak memory;
   - top kernels by device time over --iters drive_frame calls or training
     steps (torch.profiler), grouped into convolution / warp kernels / other,
-    and the device's busy share of that window.
+    and the device's busy share of that window;
+  - the loop (--loop): the training CLI (facevae_tpu_torch.train's main)
+    in-process over a PNG tree PIL writes (4 identities x 2 clips x 6
+    frames at 256², with grain), --steps steps an epoch for --epochs
+    epochs, three times: with an epoch file saved every epoch (each written
+    by a background thread while the next epoch trains), with none, and
+    with none and the frame cache (--device_cache: no loader threads); per
+    epoch the seconds per step, frames/s (the epoch line's), the loop's
+    wait on the prefetch queue, the visualization and snapshot seconds;
+    the device's busy share of steps 10-14 (--profile_dir's window, in the
+    run without epoch files: the trace's export lengthens epoch 0); and
+    the bench's step time (facevae_tpu_torch.bench, 2 warm-up and 5 timed
+    steps) in the same process.
 Writes the numbers as JSON to --out.  Fails without a CUDA device.
 """
 from __future__ import annotations
@@ -122,6 +135,52 @@ def profile_train(args, card):
         json.dump(report, f, indent=1)
 
 
+def profile_loop(args, card):
+    import gc
+    import tempfile
+    from PIL import Image
+    from facevae_tpu_torch import bench
+    from facevae_tpu_torch.data.synthetic import write_training_tree
+    from facevae_tpu_torch.train import cli
+    out_path = args.out or f"artifacts/profile_loop_{args.dtype}.json"
+    ids, clips, frames = 4, 2, 6
+    r = bench.run(batch_size=args.batch, steps=5, warmup=2, dtype=args.dtype)
+    report = {"card": card, "dtype": args.dtype, "batch": args.batch,
+              "steps_per_epoch": args.steps, "bench_step_ms": r["step_ms_median"], "runs": {}}
+    print(f"{card}; bench: {r['step_ms_median']:.1f} ms a step ({args.dtype}, batch "
+          f"{args.batch})")
+    del r
+    with tempfile.TemporaryDirectory() as tmp:
+        root = write_training_tree(f"{tmp}/data", 256, ids, clips, frames,
+                                   write=lambda p, img: Image.fromarray(img).save(p), noise=8)
+        none = args.epochs + 1
+        for tag, freq, extra in (("an epoch file every epoch", 1, []),
+                                 ("no epoch file", none, []),
+                                 ("no epoch file, frame cache", none, ["--device_cache", "true"])):
+            gc.collect()
+            torch.cuda.empty_cache()
+            run = f"{tmp}/{len(report['runs'])}"
+            argv = ["--root_dir", root, "--batch_size", str(args.batch), "--num_repeats",
+                    str(args.steps * args.batch // ids), "--num_epochs", str(args.epochs),
+                    "--checkpoint_freq", str(freq), "--keep_checkpoints", "1",
+                    "--remat", "false", "--bf16", str(args.dtype == "bfloat16"),
+                    "--ckp_dir", f"{run}/ckp", "--vis_dir", f"{run}/vis",
+                    "--log_file", f"{run}/log.txt", *extra]
+            if tag == "no epoch file":   # the trace's export lengthens its epoch
+                argv += ["--profile_dir", f"{run}/trace"]
+            _, records = cli.main(argv)
+            report["runs"][tag] = records
+            for e in records:
+                steps = args.steps
+                print(f"  {tag}: epoch {e['epoch']}: {e['steps_s'] / steps * 1e3:.1f} ms a step "
+                      f"over {steps} steps, {e['frames_per_s']:.3f} frames/s (epoch line), "
+                      f"prefetch wait {e['wait_s']:.3f} s ({e['wait_s'] / e['steps_s']:.1%}), "
+                      f"vis {e['vis_s']:.2f} s, ckpt-snap {e['ckpt_s']:.2f} s")
+    os.makedirs(os.path.dirname(os.path.abspath(out_path)), exist_ok=True)
+    with open(out_path, "w") as f:
+        json.dump(report, f, indent=1)
+
+
 def main(argv=None):
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     p.add_argument("--batch", type=int, default=8)
@@ -130,6 +189,9 @@ def main(argv=None):
     p.add_argument("--train", action="store_true", help="profile the training step")
     p.add_argument("--dtype", default="float32", choices=("float32", "bfloat16"),
                    help="the training step's compute_dtype")
+    p.add_argument("--loop", action="store_true", help="profile the training loop")
+    p.add_argument("--steps", type=int, default=16, help="--loop: steps an epoch")
+    p.add_argument("--epochs", type=int, default=3, help="--loop: epochs a run")
     args = p.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("needs a CUDA device")
@@ -138,6 +200,8 @@ def main(argv=None):
                           check=True).stdout.strip().splitlines()[0]
     if args.train:
         return profile_train(args, card)
+    if args.loop:
+        return profile_loop(args, card)
     from facevae_tpu_torch.config import Config
     from facevae_tpu_torch.models import build_models
     from facevae_tpu_torch.train.inference import InferencePipeline
