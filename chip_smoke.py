@@ -59,7 +59,9 @@ Phases, each fatal on failure (exit code 1, no result line):
   6. train_tiny  one tiny_config() training step on the card against the
               same step of the port on the CPU (plain versions), from the
               same numpy-seeded weights, images and TPS parameters, in fp32
-              (the CPU step run here) and in bf16 (the CPU step recorded in
+              (the CPU step run here, in a fresh process whose CPU math is
+              pinned: CPU_REF_ENV's one instruction set for ATen, oneDNN
+              and MKL, CPU_REF_THREADS threads) and in bf16 (the CPU step recorded in
               tests/data/torch_bf16_step_tiny.npz by
               tools/make_torch_step_golden.py): every loss and the gradient
               of every G and D parameter, held to the CPU step as
@@ -136,6 +138,36 @@ Phases, each fatal on failure (exit code 1, no result line):
               augmentation on the card against the port's on the CPU with
               the same draws (the warp within 2^-7 of max|ref|: the bf16
               rows' and output's roundings; the colour jitter within 1e-5).
+              Last, bf16 with --device_cache --steps_per_call 4 --gpu_ids 0
+              (the multi-step dispatcher through a one-card NCCL group): 6
+              steps, a call of 4 and the remainder's of 2, 2 eager warm-up
+              steps and 4 replays, launches as the eager loop's; and
+              --gpu_ids of more cards than the machine has: stopped with
+              a message.
+     dp       data parallelism on the one card: ModelConfig() fp32 at batch
+              8, four steps under torch.use_deterministic_algorithms(True)
+              through a one-rank NCCL group against the same steps with no
+              group: losses, gradients, parameters, buffers and Adam states
+              bit for bit, the last three steps' ms both ways; then tiny_config() in 2 gloo ranks on the card
+              (CUDA tensors; NCCL refuses two ranks on one device), two
+              deterministic steps, against one process on the whole batch
+              within the JAX package's data-parallel bounds, the ranks alike
+              bit for bit.
+     scan     the multi-step dispatcher (train/scan.py) at ModelConfig(),
+              batch 8, fp32 and bf16, over uint8 frames on the card: the
+              dispatcher's calls of 2, 1, 4 and 2 (the warm-up, the
+              capture and its replay, timed, profiled); after the capture
+              two replays each from the state the loop's eager step (K =
+              1) took, that step run from it twice and once on frames
+              nudged by NUDGE (its spread, as phase 6 measures it; timed,
+              and once profiled), losses, gradients and the state after
+              (buffers, Adam states) within SPREAD x that spread +
+              TRAIN_TOL; 4 eager steps back to back (the loop at
+              K = 1); ms a step both ways, the host's ms a
+              step, the device's busy share, peak memory of each pool, the
+              capture's seconds, the graph path's launches (captured x
+              replays, as the eager step's); tiny_config() under
+              deterministic algorithms: the same bits both ways.
   9. probes   the probe path: the run() of each of the four probes of
               facevae_tpu_torch/probes/ (TPU kernels 7-10, csrc/probe_*.cu)
               at the probe's own shapes, as its entry point calls it, with
@@ -156,10 +188,13 @@ Phases, each fatal on failure (exit code 1, no result line):
               (probe 7: volT's permuted view; probe 8: its fp32 source made
               from rows3 inside the timed call).
 Then a JSON line of kernel results (``launches_by_path`` per main path,
-``eval`` and ``train_loop`` included; kernels 1 and 4 also ``eval_n1``,
+``eval``, ``train_loop`` and the graph path's ``scan_float32`` /
+``scan_bfloat16`` included; kernels 1 and 4 also ``eval_n1``,
 kernel 1 also ``aug``), the eval rates, the training loop's rates, the
-card's name and power limit, and the last line {"ok": true, "device":
-{...}}.  There is no CPU fallback: without a CUDA device the script fails.
+dp and scan figures, the card's name and power limit, and the last line
+{"ok": true, "device": {...}}.  There is no CPU fallback: without a CUDA
+device the script fails.  To debug one phase on the card, import this
+module and call its phase function.
 """
 from __future__ import annotations
 
@@ -244,6 +279,13 @@ TRAIN_TOL = {"loss": 1e-4, "grad": 1e-3, "grad_floor": 1e-2}
 SPREAD, NUDGE = 10.0, 2.0 ** -20
 BF16_TRAIN_TOL = {"loss": 1e-3, "grad": 1e-2, "grad_floor": 1e-2}
 BF16_SPREAD, BF16_NUDGE = 3.0, 2.0 ** -9
+# phase 6's CPU reference steps run in a fresh process with their CPU math
+# pinned: one instruction set for ATen's kernels, oneDNN and MKL on every
+# host (AVX-512 without its later extensions, which the card's host has;
+# 4 and 8 threads give the same bits there), and a fixed thread count
+CPU_REF_ENV = {"ATEN_CPU_CAPABILITY": "avx512", "ONEDNN_MAX_CPU_ISA": "AVX512_CORE",
+               "MKL_CBWR": "AVX512"}
+CPU_REF_THREADS = 4
 TRAIN_STEPS, TRAIN_WARMUP = 5, 2
 # port vs JAX golden, relative to max|ref| (the CPU test's tolerance): fp32
 # through a few conv layers, amplified by the 0.1-temperature soft-argmax
@@ -264,6 +306,15 @@ AUG_SIZE = 256
 AUG_TOL = {"float32": 1e-5, "bfloat16": 2.0 ** -7}
 AUG_WARP_TOL = 2.0 ** -7
 TRAIN_TREE, TRAIN_REPEATS = (4, 2, 6), 6
+# the scan phase: steps a call of the dispatcher (the eager warm-up, the
+# capture and its replay, the timed call, the profiled call), the replays
+# held against the eager step, the seed of the draws
+SCAN_CALLS, SCAN_HELD, SCAN_SEED = (2, 1, 4, 2), 2, 1
+SCAN_PIPE = 4                     # the eager loop's steps timed back to back in phase scan
+DP_SEEDS = (7, 8, 9, 10)          # phase dp's full-width steps, the last three timed
+
+
+BENCH_MS = {}                     # phases 7-8's median step ms by dtype, for phase scan
 
 
 class PhaseError(RuntimeError):
@@ -786,15 +837,16 @@ def tiny_step(device, images, dtype, tp, seed=0, vae_eps=None):
 def held_step(losses, grads, ref_losses, ref_grads, noise, factor, tol):
     """Hold a step's losses and gradients to a reference step's: each within
     factor x its rounding noise (noise(kind, name, key) -> a max distance)
-    + tol's floor.  Returns (failures, worst err/limit)."""
+    + tol's floor.  Returns (failures, worst err/limit and where)."""
     import numpy as np
-    bad, worst = [], 0.0
+    bad, worst = [], (0.0, "")
 
     def hold(what, a, r, n, rel, scale):
         nonlocal worst
         err = _distance(a, r)
         lim = factor * n + rel * scale
-        worst = max(worst, err / lim if lim > 0 else (0.0 if err == 0 else float("inf")))
+        ratio = err / lim if lim > 0 else (0.0 if err == 0 else float("inf"))
+        worst = max(worst, (ratio, what))
         if not err <= lim:
             bad.append(f"{what}: {err:.3e} > {lim:.3e}")
 
@@ -815,19 +867,69 @@ def _distance(a, b):
     return float(np.abs(np.asarray(a, np.float64) - np.asarray(b, np.float64)).max())
 
 
+def cpu_references(path):
+    """Phase 6's CPU steps, pickled to ``path``; run by ``chip_smoke.py
+    --cpu-refs PATH`` in a fresh process whose CPU math is pinned
+    (CPU_REF_ENV, CPU_REF_THREADS), so that no earlier phase, thread count
+    or host CPU's instruction set changes their bits: the fp32 step on the
+    images and on them nudged, and the train_vae step on both, with the
+    host's CPU and torch's capability beside them."""
+    import pickle
+    import platform
+    import numpy as np
+    import torch
+    torch.set_num_threads(CPU_REF_THREADS)
+    rs, batch, tp = tiny_step_inputs()
+    nudged = [(b * (1 + NUDGE * rs.randn(*b.shape))).astype(np.float32) for b in batch]
+    eps = rs.randn(2, 16).astype(np.float32)
+    cpu = [line.split(":", 1)[1].strip() for line in Path("/proc/cpuinfo").read_text().splitlines()
+           if line.startswith("model name")][:1] if Path("/proc/cpuinfo").exists() else []
+    out = {"cpu": tiny_step("cpu", batch, "float32", tp),
+           "cpu_nudged": tiny_step("cpu", nudged, "float32", tp),
+           "vae": tiny_step("cpu", batch, "float32", tp, vae_eps=eps),
+           "vae_nudged": tiny_step("cpu", nudged, "float32", tp, vae_eps=eps), "eps": eps,
+           "host": {"cpu": (cpu or [platform.processor()])[0],
+                    "capability": torch.backends.cpu.get_cpu_capability(),
+                    "threads": torch.get_num_threads(), "torch": torch.__version__}}
+    with open(path, "wb") as f:
+        pickle.dump(out, f)
+    return 0
+
+
+def _cpu_references():
+    """cpu_references' result, from a fresh process (the pinned CPU math)."""
+    import os
+    import pickle
+    import tempfile
+    with tempfile.TemporaryDirectory() as d:
+        path = f"{d}/refs.pkl"
+        res = subprocess.run([sys.executable, str(ROOT / "chip_smoke.py"), "--cpu-refs", path],
+                             env={**os.environ, **CPU_REF_ENV}, cwd=ROOT, capture_output=True,
+                             text=True, timeout=900)
+        check(res.returncode == 0, f"the CPU reference steps failed: {res.stderr[-2000:]}")
+        with open(path, "rb") as f:
+            return pickle.load(f)
+
+
 def phase_train_tiny():
     """One tiny_config() step on the card against the port's step on the
     CPU, from the same numpy weights, images and TPS parameters: fp32
-    against a CPU step here; bf16 against the CPU bf16 step recorded in
-    tests/data/torch_bf16_step_tiny.npz (tools/make_torch_step_golden.py:
-    run on the card's machine, two CPU bf16 steps did not finish in 20
-    minutes)."""
+    against a CPU step run in a pinned process here (cpu_references); bf16
+    against the CPU bf16 step recorded in tests/data/torch_bf16_step_tiny.npz
+    (tools/make_torch_step_golden.py: run on the card's machine, two CPU
+    bf16 steps did not finish in 20 minutes)."""
+    import hashlib
     import numpy as np
     import torch
     from facevae_tpu_torch.ops import fast_warp
-    rs, batch, tp = tiny_step_inputs()
-    nudged = [(b * (1 + NUDGE * rs.randn(*b.shape))).astype(np.float32) for b in batch]
-    cpu, cpu_nudged = tiny_step("cpu", batch, "float32", tp), tiny_step("cpu", nudged, "float32", tp)
+    _, batch, tp = tiny_step_inputs()
+    cpu_refs = _cpu_references()
+    cpu, cpu_nudged = cpu_refs["cpu"], cpu_refs["cpu_nudged"]
+    digest = hashlib.sha256(json.dumps(cpu[0], sort_keys=True).encode()).hexdigest()[:12]
+    print(f"[train_tiny] CPU reference steps in a fresh process ({json.dumps(CPU_REF_ENV)}, "
+          f"{json.dumps(cpu_refs['host'])}; this host's own capability "
+          f"{torch.backends.cpu.get_cpu_capability()}): fp32 losses digest {digest}, "
+          f"E {cpu[0]['E']:.5f}")
     z = np.load(BF16_STEP_GOLDEN)
     gold = ({k[len("loss/"):]: float(z[k]) for k in z.files if k.startswith("loss/")},
             {})
@@ -861,16 +963,14 @@ def phase_train_tiny():
             print(f"[train_tiny] {tag}: card vs CPU step, tiny_config batch 2: losses "
                   + ", ".join(f"{k} {v:.5f}/{ref_losses[k]:.5f}" for k, v in losses.items()))
             print(f"[train_tiny] {tag}: {sum(len(g) for g in grads.values())} gradient leaves "
-                  f"and {len(losses)} losses held; worst err/limit {worst:.3f}; "
+                  f"and {len(losses)} losses held; worst err/limit {worst[0]:.3f} ({worst[1]}); "
                   f"card launches {launches}")
             if det:
                 det_paths[f"train_tiny_det_{dtype}"] = launches
             check(not bad, f"{tag} card step differs from the CPU step: {bad[:8]}")
             check(launches == _want(launches, dtype, 1, det), f"tiny {tag} step launches {launches}")
     # VAE sampling (train_vae, K = the KL term) with one eps on both devices
-    eps = rs.randn(2, 16).astype(np.float32)
-    vae_cpu = tiny_step("cpu", batch, "float32", tp, vae_eps=eps)
-    vae_nudged = tiny_step("cpu", nudged, "float32", tp, vae_eps=eps)
+    eps, vae_cpu, vae_nudged = cpu_refs["eps"], cpu_refs["vae"], cpu_refs["vae_nudged"]
     fast_warp.reset_launch_counts()
     losses, grads = tiny_step("cuda", batch, "float32", tp, vae_eps=eps)
     torch.cuda.synchronize()
@@ -883,7 +983,8 @@ def phase_train_tiny():
     print(f"[train_tiny] float32 train_vae: card vs CPU step, same eps: losses "
           + ", ".join(f"{k} {v:.5f}/{vae_cpu[0][k]:.5f}" for k, v in losses.items()))
     print(f"[train_tiny] float32 train_vae: {sum(len(g) for g in grads.values())} gradient "
-          f"leaves and {len(losses)} losses held; worst err/limit {worst:.3f}; card launches "
+          f"leaves and {len(losses)} losses held; worst err/limit {worst[0]:.3f} ({worst[1]}); "
+          f"card launches "
           f"{launches}")
     check(not bad, f"train_vae card step differs from the CPU step: {bad[:8]}")
     check(losses["K"] > 0 and vae_cpu[0]["K"] > 0, f"train_vae K loss {losses['K']} is 0")
@@ -909,6 +1010,7 @@ def _train(card, dtype):
           f"build + state {r['build_s']:.1f} s; parameters and Adam state fp32")
     print(f"[{tag}] losses {json.dumps({k: round(v, 5) for k, v in r['losses'].items()})}; "
           f"warp launches over {TRAIN_STEPS} steps {r['launches']}")
+    BENCH_MS[dtype] = r["step_ms_median"]
     return r["launches"]
 
 
@@ -1462,9 +1564,9 @@ def phase_train_loop(card):
 
         total, runs = {}, {}
 
-        def run(tag, args, dtype, aug, epochs, first):
+        def run(tag, args, dtype, aug, epochs, first, per_epoch=steps):
             state, records, counts = _train_cli(args)
-            want = _loop_counts(counts, dtype, epochs * steps, aug)
+            want = _loop_counts(counts, dtype, epochs * per_epoch, aug)
             for r in records:
                 print(f"[train_loop] {tag}: {card}: epoch {r['epoch']}: {r['frames_per_s']:.3f} "
                       f"frames/s (steps {r['steps_s']:.2f} s, ckpt-snap {r['ckpt_s']:.2f} s, vis "
@@ -1507,11 +1609,523 @@ def phase_train_loop(card):
         torch.cuda.empty_cache()
         run("cpu_aug", argv("d", "--num_epochs", "1", "--cpu_aug", "true"), "float32", 0, 1,
             [(0, 0)])
+        gc.collect()
+        torch.cuda.empty_cache()
+        # the multi-step dispatcher through the group path (NCCL, one rank):
+        # 2 x TRAIN_REPEATS steps an epoch, a call of 4 and the remainder's
+        run("bf16 scan", argv("e", "--num_epochs", "1", "--bf16", "true", "--device_cache", "true",
+                              "--steps_per_call", "4", "--gpu_ids", "0", "--num_repeats",
+                              str(2 * TRAIN_REPEATS)),
+            "bfloat16", 2, 1, [(0, 0)], per_epoch=2 * steps)
+        scan = runs["bf16 scan"][-1]["scan"]
+        print(f"[train_loop] bf16 scan: {scan['eager_steps']} eager steps, {scan['replays']} "
+              f"replays, capture {scan['capture_s']:.2f} s, graph pool "
+              f"{scan['graph_pool_bytes'] / 2 ** 30:.2f} GiB")
+        check(scan["eager_steps"] == 2 and scan["replays"] == 2 * steps - 2,
+              f"bf16 scan: {scan['eager_steps']} eager steps, {scan['replays']} replays")
+        pairs = _log_pairs(f"{tmp.name}/e/log.txt")
+        check(len(pairs) == 1, f"bf16 scan log {pairs}")
+        # more cards than the machine has stop the run before it starts
+        have = torch.cuda.device_count()
+        try:
+            _train_cli(argv("f", "--gpu_ids", f"0,{have}"))
+            check(False, f"--gpu_ids 0,{have} ran on a machine of {have} card(s)")
+        except SystemExit as e:
+            print(f"[train_loop] --gpu_ids 0,{have}: {e}")
+            check(f"this machine has {have} card(s)" in str(e), f"--gpu_ids 0,{have}: {e}")
         check(all(math.isfinite(r["frames_per_s"]) for rs in runs.values() for r in rs),
               "non-finite frames/s")
     finally:
         tmp.cleanup()
     return total, aug_rows, {"read_png_ms_per_frame": read_ms, "epochs": runs}
+
+
+def _dp_held(port, whole, world):
+    """The JAX package's data-parallel invariant (tests/test_train_step.py:
+    test_dp_vs_1dev_multistep): the ranks' steps against one process on the
+    whole batch, F rescaled by the ranks: per step (loss deviation, its
+    limit, parameter deviation, its limit)."""
+    import numpy as np
+    out = []
+    for i, (lp, lw) in enumerate(zip(port["losses"], whole["losses"])):
+        dp = dict(lp, F=lp["F"] * world)
+        dev = max(abs(dp[k] - lw[k]) / max(1.0, abs(lw[k])) for k in lw)
+        pdev = max(float(np.abs(v - whole["states"][i]["nets"][n][k]).max())
+                   for n, sd in port["states"][i]["nets"].items() for k, v in sd.items()
+                   if k.rsplit(".", 1)[-1] not in ("running_mean", "running_var",
+                                                   "weight_u", "weight_v"))
+        out.append((dev, 1e-2 * 25.0 ** i, pdev, 1e-3 * (i + 1)))
+    return out
+
+
+def phase_dp(card):
+    """Data parallelism on the one card: (1) the group path at world size 1
+    through NCCL, ModelConfig() fp32 at batch 8, four steps under
+    torch.use_deterministic_algorithms(True), against the steps with no
+    group from the same seeds: losses, gradients, every parameter and
+    buffer and both Adam states bit for bit, the ms of each step after
+    the first; (2)
+    tiny_config() in 2 ranks on the card (gloo with CUDA tensors: NCCL
+    refuses two ranks on one device), batch 1 each, two deterministic
+    steps, against one process on the whole batch of 2 (run here while
+    the ranks run) within the JAX package's data-parallel bounds, the ranks
+    bit for bit alike."""
+    import tempfile
+    import numpy as np
+    import torch
+    from facevae_tpu_torch import parallel
+    from facevae_tpu_torch.config import Config, tiny_config
+    from facevae_tpu_torch.parallel import dp_check
+    from facevae_tpu_torch.parallel.spawn import start
+    from facevae_tpu_torch.train import build_all_modules, create_train_state, train_step
+    device = torch.device("cuda")
+    cfg = Config()
+    size = cfg.model.image_size
+    g = torch.Generator(device=device).manual_seed(5)
+    batch = tuple(torch.rand(N_BATCH, size, size, 3, generator=g, device=device)
+                  for _ in range(4))
+    group = parallel.init_distributed(0, 1, "cuda", local_rank=torch.cuda.current_device())
+    backend = torch.distributed.get_backend(group)
+    runs = []
+    torch.use_deterministic_algorithms(True)
+    try:
+        for grp in (group, None):
+            state = create_train_state(cfg, device, group=grp)
+            gen = torch.Generator(device=device)
+            ms = []
+            for seed in DP_SEEDS:                    # all but the first timed
+                gen.manual_seed(seed)
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                out = train_step(state, batch, generator=gen)
+                torch.cuda.synchronize()
+                ms.append((time.perf_counter() - t0) * 1e3)
+            ms = ms[1:]
+            grads = {f"{n}.{k}": p.grad.clone() for n, net in state.nets.items()
+                     for k, p in net.named_parameters() if p.grad is not None}
+            runs.append((state, {k: v.clone() for k, v in {**out["losses_g"],
+                                                            **out["losses_d"]}.items()},
+                         grads, ms))
+    finally:
+        torch.use_deterministic_algorithms(False)
+        torch.distributed.destroy_process_group()
+    (a, la, ga, ms_a), (b, lb, gb, ms_b) = runs
+    bad = ([f"loss {k}" for k in la if not torch.equal(la[k], lb[k])]
+           + [f"grad {k}" for k in ga if k not in gb or not torch.equal(ga[k], gb[k])]
+           + _state_differences(a, b))
+    print(f"[dp] {card}: ModelConfig() fp32 batch {N_BATCH}, {len(DP_SEEDS)} deterministic steps "
+          f"through a {backend} group of 1 rank vs no group, ms a step after the first "
+          f"{', '.join(f'{t:.1f}' for t in ms_a)} (median {statistics.median(ms_a):.1f}) vs "
+          f"{', '.join(f'{t:.1f}' for t in ms_b)} (median {statistics.median(ms_b):.1f}): "
+          f"{len(la)} losses, {len(ga)} gradients, every parameter, buffer and Adam state: "
+          f"{'bit for bit' if not bad else f'{len(bad)} differ'}")
+    check(backend == "nccl", f"the card's group runs {backend}, not NCCL")
+    check(not bad, f"world size 1 through the group differs from no group at {bad[:8]}")
+    del runs, a, b
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    tiny = tiny_config()
+    steps = []
+    for seed in (0, 1):
+        _, images, tp = tiny_step_inputs(seed)
+        steps.append((tuple(images), tp))
+    with tempfile.TemporaryDirectory() as d:
+        weights = f"{d}/weights.pt"
+        torch.save(dp_check.state_weights(numpy_weights(build_all_modules(tiny, "cpu"), 6)),
+                   weights)
+        t0 = time.perf_counter()
+        ranks = start(dp_check.rank_steps, 2, tiny, weights, steps, "cuda", False, True, True,
+                      device="cuda", backend="gloo", cards=[0, 0])
+        # the one-process reference on the whole batch, here while the ranks run
+        torch.use_deterministic_algorithms(True)
+        try:
+            whole = dp_check.run_steps(tiny, weights, steps, device, snapshot_every=True)
+        finally:
+            torch.use_deterministic_algorithms(False)
+        r0, r1 = ranks.join()
+        spawn_s = time.perf_counter() - t0
+    same = (r0["losses"] == r1["losses"]
+            and not dp_check.bit_differences(r0["states"], r1["states"]))
+    held = _dp_held(r0, whole, 2)
+    print(f"[dp] tiny_config in 2 gloo ranks on the card (CUDA tensors), batch 1 each, two "
+          f"deterministic steps ({spawn_s:.1f} s with the processes' start): losses "
+          + "; ".join(", ".join(f"{k} {v:.5f}" for k, v in lp.items()) for lp in r0["losses"]))
+    print(f"[dp] vs one process on the batch of 2, F x 2: "
+          + "; ".join(f"step {i + 1}: losses {dev:.3e} (limit {dl:.0e}), parameters {pd:.3e} "
+                      f"(limit {pl:.0e})" for i, (dev, dl, pd, pl) in enumerate(held))
+          + f"; the two ranks bit for bit alike: {same}")
+    check(same, "the two ranks' states differ")
+    for i, (dev, dl, pd, pl) in enumerate(held):
+        check(dev < dl and pd < pl, f"2 ranks vs one process, step {i + 1}: losses {dev:.3e}, "
+                                    f"parameters {pd:.3e}")
+    return {"world1_ms": ms_a, "plain_ms": ms_b,
+            "world1_over_plain": statistics.median(ms_a) / statistics.median(ms_b) - 1}
+
+
+def _seed_of(step):
+    from facevae_tpu_torch.train.step import step_seed
+    return step_seed(SCAN_SEED, step)
+
+
+def _busy(fn):
+    """fn() under torch.profiler: (the device's kernel ms, the window's
+    wall ms)."""
+    import torch
+    prof = torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
+                                              torch.profiler.ProfilerActivity.CUDA])
+    torch.cuda.synchronize()
+    with prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    busy = sum(e.self_device_time_total for e in prof.key_averages()
+               if e.device_type != torch.autograd.DeviceType.CPU) / 1e3
+    return busy, wall
+
+
+def _timed(fn, n):
+    """fn() (n steps): (host ms a step until fn returns, ms a step until the
+    card is done)."""
+    import torch
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn()
+    host = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    return host * 1e3 / n, (time.perf_counter() - t0) * 1e3 / n
+
+
+def _scan_eager(cfg, frames, s_tab, d_tab, n):
+    """n steps of the loop's own (reseed, train_step on the gathered
+    frames) from a fresh state: (per-step loss vectors, the state)."""
+    import torch
+    from facevae_tpu_torch.train import create_train_state, train_step
+    device = frames.device
+    state = create_train_state(cfg, device)
+    gen = torch.Generator(device=device)
+    vecs = []
+    for k in range(n):
+        gen.manual_seed(_seed_of(state.step))
+        vecs.append(_loss_vec(train_step(state, (frames.index_select(0, s_tab[k]),
+                                                 frames.index_select(0, d_tab[k])),
+                                         generator=gen, fused_aug=True)))
+    torch.cuda.synchronize()
+    return torch.stack(vecs).cpu(), state
+
+
+def _loss_vec(out):
+    import torch
+    return torch.stack([v.float() for v in list(out["losses_g"].values())
+                        + list(out["losses_d"].values())])
+
+
+def _max_abs_diffs(a, b):
+    """max|x - y| of each pair of tensors of a and b, on the host (fp64)."""
+    import torch
+    return torch.stack([(x.double() - y.double()).abs().max() for x, y in zip(a, b)]).cpu()
+
+
+def _held_replays(scan, frames, s_tab, d_tab, start, n):
+    """Steps start..start+n-1 of the dispatcher, each from the state it
+    left: the eager step three times from that state (restored in place
+    between: the tensors the graph reads), the third on the frames as
+    floats nudged by NUDGE (phase 6's measure of a step's own rounding
+    noise), and one replay.  The eager steps are the loop's own (K = 1):
+    the first two timed alone (a sync before and after), the last held
+    step's second under torch.profiler instead.  Returns ([(eager, eager
+    again, eager nudged, replay)] loss vectors on the host, [(names,
+    replay's max|.-eager|, the larger of the other two's max|.-eager|,
+    max|eager|)] over the gradients each step applied (the trainable
+    parameters' .grad) and over the state after it that is not a parameter
+    (every buffer, both Adam moments and step counts, named
+    "net.param:kind"), {ms, host_ms: medians a step, busy_ms, wall_ms,
+    peak: memory allocated over the eager steps})."""
+    import torch
+    from facevae_tpu_torch.train import train_step
+    state = scan.state
+    named = ([(f"{n}.{k}", t) for n, net in state.nets.items()
+              for k, t in net.state_dict().items()]
+             + [(f"{o}[{i}].{k}", v) for o, opt in (("g_opt", state.g_opt), ("d_opt", state.d_opt))
+                for i, st in enumerate(opt.state.values()) for k, v in st.items()
+                if torch.is_tensor(v)])
+    names, tensors = [n for n, _ in named], [t for _, t in named]
+    trained = {id(p) for opt in (state.g_opt, state.d_opt) for g in opt.param_groups
+               for p in g["params"]}
+    gnamed = [(f"{n}.{k}", p) for n, net in state.nets.items()
+              for k, p in net.named_parameters() if id(p) in trained and p.grad is not None]
+    pname = {id(p): f"{n}.{k}" for n, net in state.nets.items() for k, p in net.named_parameters()}
+    snamed = ([(f"{n}.{k}:buffer", b) for n, net in state.nets.items()
+               for k, b in net.named_buffers()]
+              + [(f"{pname[id(p)]}:{k}", v) for opt in (state.g_opt, state.d_opt)
+                 for p, st in opt.state.items() for k, v in st.items() if torch.is_tensor(v)])
+    snames, stensors = [n for n, _ in snamed], [t for _, t in snamed]
+
+    def grads():
+        return [p.grad for _, p in gnamed]
+
+    def held(names, now, ref, spread):
+        return (names, _max_abs_diffs(now, ref), spread,
+                torch.stack([r.double().abs().max() for r in ref]).cpu())
+    out, states, grad_held, host, wall, info = [], [], [], [], [], {}
+    torch.cuda.reset_peak_memory_stats()
+    for k in range(start, start + n):
+        snap, step = [t.clone() for t in tensors], state.step
+        vecs, spread, g_spread = [], 0, 0
+        for i in range(3):
+            torch._foreach_copy_(tensors, snap)
+            state.step = step
+            scan.generator.manual_seed(_seed_of(step))
+            batch = (frames.index_select(0, s_tab[k]), frames.index_select(0, d_tab[k]))
+            if i == 2:
+                g = torch.Generator(device=frames.device).manual_seed(k)
+                batch = tuple(x.float() / 255.0 * (1 + NUDGE * torch.randn(
+                    x.shape, generator=g, device=x.device)) for x in batch)
+
+            def eager():
+                vecs.append(_loss_vec(train_step(state, batch, generator=scan.generator,
+                                                 fused_aug=True)))
+            if k == start + n - 1 and i == 1:
+                info["busy_ms"], info["wall_ms"] = _busy(eager)
+            elif i < 2:
+                h, w = _timed(eager, 1)
+                host.append(h)
+                wall.append(w)
+            else:
+                eager()
+            if i == 0:
+                after, g_after = [t.clone() for t in stensors], [g.clone() for g in grads()]
+            else:
+                spread = torch.maximum(torch.as_tensor(spread, dtype=torch.float64),
+                                       _max_abs_diffs(stensors, after))
+                g_spread = torch.maximum(torch.as_tensor(g_spread, dtype=torch.float64),
+                                         _max_abs_diffs(grads(), g_after))
+        info["peak"] = torch.cuda.max_memory_allocated()
+        torch._foreach_copy_(tensors, snap)
+        del snap
+        state.step = step
+        got = scan(s_tab[k:k + 1], d_tab[k:k + 1])
+        vecs.append(torch.stack(list(got["losses_g"].values())
+                                + list(got["losses_d"].values()), 1)[0])
+        out.append(tuple(v.cpu() for v in vecs))
+        states.append(held(snames, stensors, after, spread))
+        grad_held.append(held([n for n, _ in gnamed], grads(), g_after, g_spread))
+        del after, g_after
+    info["ms"], info["host_ms"] = statistics.median(wall), statistics.median(host)
+    return out, grad_held, states, info
+
+
+def _scan_graph(cfg, frames, s_tab, d_tab, calls, held=0):
+    """The dispatcher over ``calls`` (steps a call: the warm-up, the call
+    that captures, the timed call, the profiled call), with ``held``
+    steps of _held_replays after the capture: (per-step loss vectors, the
+    state, the dispatcher, {ms, host_ms, busy_ms, wall_ms, replay_peak,
+    launches of the timed call, held})."""
+    import torch
+    from facevae_tpu_torch.ops import fast_warp
+    from facevae_tpu_torch.train import create_train_state, train_step
+    from facevae_tpu_torch.train.scan import ScanStep
+    device = frames.device
+    state = create_train_state(cfg, device)
+    scan = ScanStep(state, frames, torch.Generator(device=device), _seed_of)
+    rows, info, k = [], {}, 0
+    for i, n in enumerate(calls):
+        sl = slice(k, k + n)
+
+        def call():
+            out = scan(s_tab[sl], d_tab[sl])
+            rows.append(torch.stack(list(out["losses_g"].values())
+                                    + list(out["losses_d"].values()), 1))
+        if i == 2:
+            torch.cuda.reset_peak_memory_stats()
+            fast_warp.reset_launch_counts()
+            info["host_ms"], info["ms"] = _timed(call, n)
+            info["launches"] = dict(fast_warp.launches)
+            info["replay_peak"] = torch.cuda.max_memory_allocated()
+        elif i == 3:
+            info["busy_ms"], info["wall_ms"] = _busy(call)
+        else:
+            call()
+        k += n
+        if i == 1 and held:
+            info["held"], info["held_grads"], info["held_state"], info["eager"] = _held_replays(
+                scan, frames, s_tab, d_tab, k, held)
+            k += held
+            gc.collect()
+            torch.cuda.empty_cache()
+    if held:
+        # the eager loop (K = 1) as the training loop runs it: reseed and
+        # step, SCAN_PIPE steps back to back, one sync at the end
+        def eager_loop():
+            for j in range(k, k + SCAN_PIPE):
+                scan.generator.manual_seed(_seed_of(state.step))
+                train_step(state, (frames.index_select(0, s_tab[j]),
+                                   frames.index_select(0, d_tab[j])),
+                           generator=scan.generator, fused_aug=True)
+        info["eager"]["pipe_host_ms"], info["eager"]["pipe_ms"] = _timed(eager_loop, SCAN_PIPE)
+    torch.cuda.synchronize()
+    return torch.cat(rows).cpu(), state, scan, info
+
+
+def phase_scan(card):
+    """The multi-step dispatcher (train/scan.py) on the card over frames on
+    the card (a [32,256,256,3] uint8 tensor, what the frame cache holds)
+    and one index stream: ModelConfig() at batch 8, fp32 and bf16, the
+    dispatcher's calls of 2 (its eager warm-up), 1 (the capture and its
+    replay), 4 (timed) and 2 (profiled).  After the capture, two replays
+    each from the state an eager step took: that eager step, the loop's
+    own (K = 1), runs from the state twice and once on the frames nudged
+    by NUDGE (restored in place between: its spread, run to run and as
+    phase 6 measures a step's rounding noise; three of the four unnudged
+    runs timed alone, one profiled), and each replay's losses are held
+    within SPREAD x that spread + TRAIN_TOL of the eager step's, as phase
+    6 holds the card's step; so are the
+    gradients it applied and the state after it (every buffer, both Adam
+    moments and step counts) as phase 6 holds gradients.
+    Then SCAN_PIPE eager steps back to back, as the training loop runs
+    them with K = 1.  Printed: ms a step both ways until the card is done
+    (and phase 7 / 8's bench step), the host's ms a step, the
+    device's busy share (torch.profiler), peak memory of the eager steps,
+    of the warm-up, of the graph's pool and over the replays, the
+    capture's seconds and the graph path's launches (captured x replays).
+    Then tiny_config() under torch.use_deterministic_algorithms(True): four
+    eager steps against calls of 2 and 2, the losses and the state after
+    bit for bit."""
+    import numpy as np
+    import torch
+    from facevae_tpu_torch.config import Config, ModelConfig, tiny_config
+    device = torch.device("cuda")
+    rs = np.random.RandomState(12)
+    frames = torch.from_numpy(rs.randint(0, 256, (32, 256, 256, 3)).astype(np.uint8)).to(device)
+    calls = SCAN_CALLS
+    total = sum(calls) + SCAN_HELD + SCAN_PIPE
+    s_tab, d_tab = (torch.from_numpy(rs.randint(0, 32, (total, N_BATCH))).to(device)
+                    for _ in range(2))
+    paths, rows = {}, {}
+    for dtype in ("float32", "bfloat16"):
+        cfg = Config(model=ModelConfig(compute_dtype=dtype))
+        gl, st, scan, gi = _scan_graph(cfg, frames, s_tab, d_tab, calls, held=SCAN_HELD)
+        names = list(scan.names[0]) + list(scan.names[1])
+        tols = TRAIN_TOL if dtype == "float32" else BF16_TRAIN_TOL
+        tol = tols["loss"]
+        worst, bad, same, same_eager = (0.0, ""), [], 0, 0
+        for k, (e1, e2, e3, g) in enumerate(gi["held"]):
+            same += int(torch.equal(g, e1))
+            same_eager += int(torch.equal(e2, e1))
+            for j, n in enumerate(names):
+                lim = (SPREAD * max(abs(float(e2[j] - e1[j])), abs(float(e3[j] - e1[j])))
+                       + tol * abs(float(e1[j])))
+                err = abs(float(g[j] - e1[j]))
+                worst = max(worst, (err / lim if lim else (0.0 if err == 0 else float("inf")),
+                                    f"step {k} {n}"))
+                if not err <= lim:
+                    bad.append(f"step {k} {n}: {err:.3e} > {lim:.3e}")
+        # each replay's gradients and the state after it (every buffer, both
+        # Adam moments and step counts) against the eager step's, as phase 6
+        # holds gradients: within SPREAD x the eager step's own spread (run
+        # to run and under nudged frames) + tol's grad share of max|.|,
+        # floored at grad_floor x the largest of its kind in its net.  Parameters are not held one
+        # by one: Adam turns the rounding noise of a gradient that is zero
+        # but for noise (a conv bias before BatchNorm) into a step of +-lr.
+        hold = {}
+        for what, rows_ in (("gradients", gi["held_grads"]), ("state", gi["held_state"])):
+            w_, same_, count_ = (0.0, ""), 0, 0
+            for k, (tnames, err, spread, scale) in enumerate(rows_):
+                kinds = [n.split(".")[0] + ":" + (n.rsplit(":", 1)[1] if ":" in n else "grad")
+                         for n in tnames]
+                top = {}
+                for kind, v in zip(kinds, scale.tolist()):
+                    top[kind] = max(top.get(kind, 0.0), v)
+                scale = torch.maximum(scale, tols["grad_floor"] * torch.tensor(
+                    [top[kind] for kind in kinds], dtype=scale.dtype))
+                lim = SPREAD * spread + tols["grad"] * scale
+                ratio = torch.where(lim > 0, err / lim, torch.where(err > 0, float("inf"), 0.0))
+                j = int(ratio.argmax())
+                w_ = max(w_, (float(ratio[j]), f"step {k} {tnames[j]}"))
+                same_ += int((err == 0).sum())
+                count_ += err.numel()
+                bad += [f"step {k} {what} {tnames[j]}: {float(err[j]):.3e} > {float(lim[j]):.3e}"
+                        for j in torch.nonzero(~(err <= lim)).flatten().tolist()]
+            hold[what] = (w_, same_, count_)
+        want = _loop_counts(gi["launches"], dtype, calls[2], 2)
+        captured = {k: v for k, v in scan.captured_launches.items() if v}
+        st_ = scan.stats
+        ei = gi["eager"]
+        bench = BENCH_MS.get(dtype)
+        del st, scan
+        gc.collect()
+        torch.cuda.empty_cache()
+        print(f"[scan] {card}: ModelConfig() {dtype} batch {N_BATCH}: the eager loop (K = 1, "
+              f"{SCAN_PIPE} steps back to back) {ei['pipe_ms']:.1f} ms a step "
+              f"({N_BATCH * 1e3 / ei['pipe_ms']:.2f} frames/s), host {ei['pipe_host_ms']:.1f} ms "
+              f"a step; one eager step timed alone {ei['ms']:.1f} ms, host {ei['host_ms']:.1f} "
+              f"ms, device busy {ei['busy_ms'] / ei['wall_ms']:.1%}; graph (K = "
+              f"{calls[2]}) {gi['ms']:.1f} ms a step ({N_BATCH * 1e3 / gi['ms']:.2f} frames/s), "
+              f"host {gi['host_ms']:.1f} ms a step, device busy "
+              f"{gi['busy_ms'] / gi['wall_ms']:.1%} (kernel time over wall time); the bench's "
+              f"step of phase {7 if dtype == 'float32' else 8} (given augmented frames) "
+              + (f"{bench:.1f} ms" if bench else "not run"))
+        print(f"[scan] {dtype}: peak memory allocated over the held eager steps (beside the "
+              f"graph's pool) {ei['peak'] / 2 ** 30:.2f} GiB, warm-up "
+              f"{st_['eager_peak_bytes'] / 2 ** 30:.2f} GiB, graph pool "
+              f"{st_['graph_pool_bytes'] / 2 ** 30:.2f} GiB, allocated over the replays "
+              f"{gi['replay_peak'] / 2 ** 30:.2f} GiB; capture {st_['capture_s']:.2f} s; "
+              f"launches captured a step {captured}, over the timed call's {calls[2]} replays "
+              f"{gi['launches']}")
+        print(f"[scan] {dtype}: {SCAN_HELD} replays each from the state an eager step took, "
+              f"{len(names)} losses each: {same} of {SCAN_HELD} bit for bit (the eager step run "
+              f"again: {same_eager} of {SCAN_HELD}); worst err/limit "
+              f"{worst[0]:.3f} ({worst[1]}; limit {SPREAD:g} x the eager step's own spread, run "
+              f"to run and on frames nudged by {NUDGE:g}, + {tol:g} x |ref|); last held step "
+              f"graph/eager "
+              + ", ".join(f"{n} {float(g[j]):.5f}/{float(e1[j]):.5f}"
+                          for j, n in enumerate(names) for e1, _, _, g in gi["held"][-1:]))
+        for what, (w_, same_, count_) in hold.items():
+            print(f"[scan] {dtype}: the replays' {what} against the eager step's, "
+                  f"{count_ // SCAN_HELD} tensors a step: {same_} of {count_} bit for bit; "
+                  f"worst err/limit {w_[0]:.3f} ({w_[1]}; limit {SPREAD:g} x the eager step's "
+                  f"own spread + {tols['grad']:g} x max|.|, floored at "
+                  f"{tols['grad_floor']:g} x the largest of its kind in its net)")
+        check(torch.isfinite(gl).all().item(), f"{dtype} graph losses not finite")
+        check(not bad, f"{dtype} graph steps differ from the eager steps: {bad[:8]}")
+        check(gi["launches"] == want, f"{dtype} graph launches {gi['launches']}, want {want}")
+        paths[f"scan_{dtype}"] = gi["launches"]
+        rows[dtype] = {"eager_loop_ms": ei["pipe_ms"], "eager_loop_host_ms": ei["pipe_host_ms"],
+                       "eager_ms": ei["ms"], "graph_ms": gi["ms"], "bench_ms": bench,
+                       "eager_host_ms": ei["host_ms"], "graph_host_ms": gi["host_ms"],
+                       "eager_busy": ei["busy_ms"] / ei["wall_ms"],
+                       "graph_busy": gi["busy_ms"] / gi["wall_ms"],
+                       "eager_peak_gib": ei["peak"] / 2 ** 30,
+                       "graph_pool_gib": st_["graph_pool_bytes"] / 2 ** 30,
+                       "replay_peak_gib": gi["replay_peak"] / 2 ** 30,
+                       "capture_s": st_["capture_s"], "held_bit_for_bit": same,
+                       "eager_again_bit_for_bit": same_eager,
+                       "held_worst": worst[0],
+                       **{f"held_{w}_worst": v[0][0] for w, v in hold.items()},
+                       **{f"held_{w}_bit_for_bit": v[1] / v[2] for w, v in hold.items()}}
+
+    tiny = tiny_config()
+    frames = torch.from_numpy(rs.randint(0, 256, (8, 64, 64, 3)).astype(np.uint8)).to(device)
+    s_tab, d_tab = (torch.from_numpy(rs.randint(0, 8, (4, 2))).to(device) for _ in range(2))
+    torch.use_deterministic_algorithms(True)
+    try:
+        e1, se = _scan_eager(tiny, frames, s_tab, d_tab, 4)
+        from facevae_tpu_torch.ops import fast_warp
+        fast_warp.reset_launch_counts()
+        gl, sg, scan, _ = _scan_graph(tiny, frames, s_tab, d_tab, (2, 2))
+        det_launches = dict(fast_warp.launches)
+    finally:
+        torch.use_deterministic_algorithms(False)
+    diff = int((gl != e1).sum())
+    bad = _state_differences(se, sg)
+    print(f"[scan] tiny_config deterministic: four eager steps vs calls of 2 and 2 "
+          f"({scan.replays} replays): {diff} of {gl.numel()} losses differ, the states after "
+          f"differ at {len(bad)} tensors; launches {det_launches}")
+    check(scan.replays == 2 and diff == 0 and not bad,
+          f"deterministic graph steps differ: {diff} losses, state {bad[:8]}")
+    paths["scan_tiny_det"] = det_launches
+    return paths, rows
 
 
 def _probe_row(name, out, ref, r, plain_ms, site):
@@ -1630,7 +2244,12 @@ def phase_probes():
     return rows, counts
 
 
-def main() -> int:
+def main(argv=None) -> int:
+    """Every phase in order, then the kernels line and the result line."""
+    argv = sys.argv[1:] if argv is None else argv
+    if argv:
+        print(f"FAIL: unknown arguments {argv}")
+        return 1
     try:
         import torch
     except ImportError as e:
@@ -1645,7 +2264,7 @@ def main() -> int:
         print(f"FAIL: run from the root of a checkout ({e})")
         return 1
     t_all = time.perf_counter()
-    phase_s, paths = {}, {}
+    phase_s, paths, det_paths = {}, {}, {}
     try:
         card = phase_device()
         for name, fn in (("build", phase_build), ("kernels", phase_kernels),
@@ -1656,6 +2275,7 @@ def main() -> int:
                          ("eval", lambda: phase_eval(card)),
                          ("train_bf16", lambda: _train(card, "bfloat16")),
                          ("train_loop", lambda: phase_train_loop(card)),
+                         ("dp", lambda: phase_dp(card)), ("scan", lambda: phase_scan(card)),
                          ("probes", phase_probes)):
             # a train state lives in reference cycles, which only the
             # collector frees: collect them, so that a phase's peak memory
@@ -1670,11 +2290,17 @@ def main() -> int:
             elif name in ("serve", "train", "train_bf16"):
                 paths[name] = out                  # each main path's launch counts
             elif name == "train_tiny":
-                det_paths = out                    # the deterministic mode's steps
+                det_paths.update(out)              # the deterministic mode's steps
             elif name == "eval":
                 paths["eval"], eval_n1, eval_rates = out
             elif name == "train_loop":
                 paths["train_loop"], aug_rows, loop_rates = out
+            elif name == "dp":
+                dp_rates = out
+            elif name == "scan":
+                scan_paths, scan_rates = out
+                det_paths["scan_tiny_det"] = scan_paths.pop("scan_tiny_det")
+                paths.update(scan_paths)           # the graph path: captured x replays
             elif name == "probes":
                 probe_rows, probe_counts = out
     except PhaseError as e:
@@ -1719,6 +2345,8 @@ def main() -> int:
     print(json.dumps({"kernels": kernels}))
     print(f"[eval] {json.dumps({k: round(v, 3) for k, v in eval_rates.items()})}")
     print(f"[train_loop] {json.dumps(loop_rates)}")
+    print(f"[dp] {json.dumps(dp_rates)}")
+    print(f"[scan] {json.dumps(scan_rates)}")
     print(f"[done] {time.perf_counter() - t_all:.1f} s; phases {json.dumps(phase_s)}")
     print(smi())
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
@@ -1728,4 +2356,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--cpu-refs"]:
+        sys.exit(cpu_references(sys.argv[2]))
     sys.exit(main())

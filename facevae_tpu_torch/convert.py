@@ -240,13 +240,17 @@ def _optax_adam_state(opt: torch.optim.Adam, nets: Mapping[str, torch.nn.Module]
                 raise ValueError(f"optax {m}/{n} and the parameters differ: "
                                  f"{sorted(set(moments[m][n]) ^ own)}")
     count = int(np.asarray(adam["count"]))
+    # a capturable Adam (the port's on the card) keeps its step count on the
+    # parameters' device, torch's default on the host
+    capturable = any(g.get("capturable", False) for g in opt.param_groups)
     state = {}
     for i, (n, k, p) in enumerate(named):
         mu, nu = moments["mu"][n][k], moments["nu"][n][k]
         if tuple(mu.shape) != tuple(p.shape) or tuple(nu.shape) != tuple(p.shape):
             raise ValueError(f"optax moments of {n}.{k}: {mu.shape}, {nu.shape} vs {tuple(p.shape)}")
         if count:
-            state[i] = {"step": torch.tensor(float(count), dtype=torch.float32),
+            state[i] = {"step": torch.tensor(float(count), dtype=torch.float32,
+                                             device=p.device if capturable else "cpu"),
                         "exp_avg": torch.tensor(mu, dtype=p.dtype, device=p.device),
                         "exp_avg_sq": torch.tensor(nu, dtype=p.dtype, device=p.device)}
     return state

@@ -23,6 +23,7 @@ from typing import NamedTuple
 import torch
 
 from facevae_tpu_torch.config import DataConfig
+from facevae_tpu_torch.numerics import constant
 from facevae_tpu_torch.ops.fast_warp import warp_multi_pixel
 
 _LUMA = (0.299, 0.587, 0.114)
@@ -56,9 +57,8 @@ def _perspective_homography(pers: torch.Tensor, enl: torch.Tensor, size: int) ->
     geometry: one corner pair sheared by pers, all enlarged by enl), from
     the signed magnitudes pers, enl [N]."""
     s = float(size)
-    corners = torch.tensor([[0.0, 0.0], [0.0, 1.0], [1.0, 0.0], [1.0, 1.0]],
-                           device=pers.device) * s
-    signs = torch.tensor([[-1.0, -1.0], [-1.0, 1.0], [1.0, -1.0], [1.0, 1.0]], device=pers.device)
+    corners = constant(((0.0, 0.0), (0.0, 1.0), (1.0, 0.0), (1.0, 1.0)), device=pers.device) * s
+    signs = constant(((-1.0, -1.0), (-1.0, 1.0), (1.0, -1.0), (1.0, 1.0)), device=pers.device)
     src = corners + signs * enl[:, None, None]
     dst = src.clone()
     dst[:, 1, 0] += pers
@@ -71,9 +71,9 @@ def _rotation_homography(angle: torch.Tensor, size: int) -> torch.Tensor:
     c, si = torch.cos(angle), torch.sin(angle)
     zero, one = torch.zeros_like(c), torch.ones_like(c)
     cx = cy = (size - 1) / 2.0
-    t1 = torch.tensor([[1.0, 0.0, -cx], [0.0, 1.0, -cy], [0.0, 0.0, 1.0]], device=angle.device)
+    t1 = constant(((1.0, 0.0, -cx), (0.0, 1.0, -cy), (0.0, 0.0, 1.0)), device=angle.device)
     r = torch.stack([c, -si, zero, si, c, zero, zero, zero, one], -1).reshape(-1, 3, 3)
-    t2 = torch.tensor([[1.0, 0.0, cx], [0.0, 1.0, cy], [0.0, 0.0, 1.0]], device=angle.device)
+    t2 = constant(((1.0, 0.0, cx), (0.0, 1.0, cy), (0.0, 0.0, 1.0)), device=angle.device)
     return t2 @ r @ t1
 
 
@@ -90,7 +90,7 @@ def frame_draws(generator, n: int, size: int, cfg: DataConfig, device=None) -> F
     rel = size / 256.0                 # reference magnitudes assume 256px inputs
 
     def uniform(col, lo, hi):                 # jax.random.uniform's fp32 arithmetic
-        lo, hi = (torch.tensor(v, dtype=torch.float32, device=col.device) for v in (lo, hi))
+        lo, hi = (constant(v, device=col.device) for v in (lo, hi))
         return col * (hi - lo) + lo
 
     sign = lambda col: torch.where(col < 0.5, 1.0, -1.0)            # noqa: E731
@@ -164,7 +164,7 @@ def _color_jitter(x: torch.Tensor, draws: FrameDraws) -> torch.Tensor:
     """Brightness, saturation, hue, contrast of [N,H,W,3] in [0,1], in that
     fixed order (the JAX module's _color_jitter)."""
     col = lambda a: a[:, None, None, None]                            # noqa: E731
-    luma = torch.tensor(_LUMA, dtype=x.dtype, device=x.device)
+    luma = constant(tuple(_LUMA), x.dtype, x.device)
     x = x * col(draws.brightness)
     lum = (x @ luma)[..., None]
     x = lum + col(draws.saturation) * (x - lum)

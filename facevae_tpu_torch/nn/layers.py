@@ -21,14 +21,21 @@ other's updates in call order.  BatchNorm is single-device (no SyncBN yet).
 from __future__ import annotations
 
 import math
+import warnings
 
 import torch
+import torch.distributed as dist
+import torch.distributed.nn.functional as dist_fn
 import torch.nn as nn
 import torch.nn.functional as F
 
 from facevae_tpu_torch.nn.init import unit_normal_, uniform_fan_in_
 
 _CONV = {2: F.conv2d, 3: F.conv3d}
+# torch marks its differentiable all-reduce deprecated in favour of the
+# functional collectives, whose all_reduce has no gradient
+warnings.filterwarnings("ignore", message="torch.distributed.nn.functional.all_reduce is "
+                        "deprecated", category=FutureWarning)
 
 
 def _tuple(v, d):
@@ -125,7 +132,14 @@ class BatchNorm(nn.Module):
     the unbiased variance and momentum 0.1 (new = 0.9 * old + 0.1 * batch).
     Eval: the running statistics.  Either way the statistics and the affine
     fold into one per-channel multiply-add, y = x * a + b.  affine=False has
-    no weight or bias (the SimSiam projector's last BN)."""
+    no weight or bias (the SimSiam projector's last BN).
+
+    With ``group`` set (SyncBatchNorm, the JAX layer's axis_name): E[x] and
+    E[x^2] are averaged over the group's ranks by one differentiable
+    all-reduce (the backward all-reduces their cotangents, as the transpose
+    of JAX's pmean), and the running variance's n counts every rank's
+    elements.  Not torch's nn.SyncBatchNorm: that merges counts Welford-style
+    and updates the running variance by another formula."""
 
     def __init__(self, features, eps=1e-5, momentum=0.1, affine=True, device=None):
         super().__init__()
@@ -137,6 +151,7 @@ class BatchNorm(nn.Module):
             self.bias = nn.Parameter(torch.empty(features, device=device))
         self.register_buffer("running_mean", torch.empty(features, device=device))
         self.register_buffer("running_var", torch.empty(features, device=device))
+        self.group = None
 
     @torch.no_grad()
     def init_parameters(self, generator):
@@ -151,9 +166,15 @@ class BatchNorm(nn.Module):
             dims = (0,) + tuple(range(2, x.dim()))
             xf = x.float()
             mean = xf.mean(dims)
-            var = (xf * xf).mean(dims) - mean * mean
+            mean2 = (xf * xf).mean(dims)
+            world = 1
+            if self.group is not None:
+                world = dist.get_world_size(self.group)
+                stats = dist_fn.all_reduce(torch.stack([mean, mean2]), group=self.group)
+                mean, mean2 = (stats / world).unbind(0)
+            var = mean2 - mean * mean
             with torch.no_grad():
-                n = float(x.numel() // x.shape[1])
+                n = float(x.numel() // x.shape[1] * world)
                 m = self.momentum
                 self.running_mean.copy_((1 - m) * self.running_mean + m * mean)
                 self.running_var.copy_((1 - m) * self.running_var

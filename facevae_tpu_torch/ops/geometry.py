@@ -7,6 +7,8 @@ from __future__ import annotations
 
 import torch
 
+from facevae_tpu_torch.numerics import constant
+
 
 def _rows(entries):
     return torch.stack(entries, dim=-1).reshape(-1, 3, 3)
@@ -58,12 +60,12 @@ def transform_kp_with_new_pose(canonical_kp, yaw, pitch, roll, t, delta,
     mean depth (over the whole batch, as in the reference) is 0.33."""
     old_rot = pose_rotation(yaw, pitch, roll)
     rot_mat = pose_rotation(new_yaw, new_pitch, new_roll)
-    rel = torch.matmul(rot_mat, torch.linalg.inv(old_rot))
+    rel = torch.matmul(rot_mat, torch.linalg.inv_ex(old_rot)[0])   # _ex: no host sync
     kp = (torch.matmul(rot_mat[:, None], canonical_kp[..., None])[..., 0]
           + t[:, None, :]
           + torch.matmul(rel[:, None], delta[..., None])[..., 0])
     zt = 0.33 - kp[:, :, 2].mean()
-    unit_z = torch.tensor([0.0, 0.0, 1.0], dtype=kp.dtype, device=kp.device)
+    unit_z = constant((0.0, 0.0, 1.0), kp.dtype, kp.device)
     return kp + unit_z * zt, rot_mat
 
 

@@ -34,7 +34,7 @@ def create_sparse_motions(fs, kp_s, kp_d, Rs, Rd):
     grid = make_coordinate_grid_3d((D, H, W), device=fs.device)       # [D,H,W,3]
     identity = grid[None, None].expand(N, 1, D, H, W, 3)
     coords = grid[None, None] - kp_d[:, :, None, None, None, :]        # [N,K,D,H,W,3]
-    jac = torch.matmul(Rs.float(), torch.linalg.inv(Rd.float()))
+    jac = torch.matmul(Rs.float(), torch.linalg.inv_ex(Rd.float())[0])
     moved = torch.einsum("nij,nkdhwj->nkdhwi", jac, coords) + kp_s[:, :, None, None, None, :]
     return torch.cat([identity, moved], dim=1)
 
@@ -68,7 +68,7 @@ def create_heatmap_representations_cl(fs, kp_s, kp_d):
 def motion_affine_params(kp_s, kp_d, Rs, Rd):
     """jac [N,3,3] = Rs Rd^-1 and offsets b [N,K,3] = kp_s - jac kp_d."""
     kp_s, kp_d = kp_s.float(), kp_d.float()
-    jac = torch.matmul(Rs.float(), torch.linalg.inv(Rd.float()))
+    jac = torch.matmul(Rs.float(), torch.linalg.inv_ex(Rd.float())[0])
     b = kp_s - torch.einsum("nij,nkj->nki", jac, kp_d)
     return jac, b
 

@@ -37,18 +37,13 @@ from facevae_tpu_torch.convert import (TRAIN_STATE_KEYS, adam_state_dicts,
                                        jax_tree_from_state_dict, load_jax_train_state,
                                        optax_adam_tree)
 from facevae_tpu_torch.models import D_MODEL_NAMES, G_MODEL_NAMES
+from facevae_tpu_torch.parallel.mesh import is_master
 from facevae_tpu_torch.train import msgpack_io
 from facevae_tpu_torch.train.state import TrainState
 
 _CKPT_RE = re.compile(r"^(\d{8})-checkpoint\.msgpack$")
 TEACHERS = ("hopenet", "perceptual")
 STATE_KEYS = TRAIN_STATE_KEYS + ("g_opt", "d_opt", "epoch", "step")
-
-
-def is_master() -> bool:
-    """Rank 0 of the process group, or no process group."""
-    dist = torch.distributed
-    return not (dist.is_available() and dist.is_initialized()) or dist.get_rank() == 0
 
 
 def checkpoint_path(ckp_dir: str, epoch: int, zfill_num: int = 8) -> str:

@@ -15,9 +15,20 @@ split once into one uint8 tensor on the card.  Epoch files go to --ckp_dir
 N's file, --ckp -1 from the newest.  FACEVAE_WATCHDOG=<secs> dumps every
 thread's stack to stderr on that period.
 
-Not ported (ROADMAP Queue 1): --steps_per_call > 1 (the scan dispatcher)
-and more than one card (DDP), item 5, refused; --remat true (the default),
-item 6, runs without rematerialization and says so once.
+Data parallelism: --gpu_ids a,b,... starts one process per listed card of
+this host (spawn, NCCL; --device cpu: gloo processes on the CPU), each with
+--batch_size frames a step (the global batch is batch x cards), joined in
+one process group (parallel/); one listed card runs in this process
+through the same group path.  Under a launcher's environment (RANK,
+WORLD_SIZE, LOCAL_RANK, MASTER_ADDR, MASTER_PORT) each process joins that
+group instead.  Rank 0 alone prints, logs, visualizes and writes epoch
+files; every rank loads on resume.  More cards than the machine has stop
+the run.  --steps_per_call K > 1 runs K steps per call of the multi-step
+dispatcher (train/scan.py: a CUDA graph of the step replayed K times);
+it needs --device_cache true and the on-device augmentation.
+
+Not ported (ROADMAP Queue 1 item 6): --remat true (the default) runs
+without rematerialization and says so once.
 """
 from __future__ import annotations
 
@@ -39,8 +50,8 @@ def parse_args(argv=None):
     parser.add_argument("--benchmark", type=str2bool, default=True,
                         help="(parity flag)")
     parser.add_argument("--gpu_ids", default=None, type=str,
-                        help="parity flag: comma list; its length = number of devices "
-                             "(one card: more is not ported)")
+                        help="comma list of this host's cards, one process each (with "
+                             "--device cpu: that many gloo processes)")
     parser.add_argument("--lr", default=0.00005, type=float, help="Learning rate")
     parser.add_argument("--num_epochs", default=150, type=int)
     parser.add_argument("--num_workers", default=8, type=int)
@@ -68,7 +79,8 @@ def parse_args(argv=None):
                         help="retain only the N newest epoch checkpoints (0 = keep all); "
                              "crash-saves are never pruned")
     parser.add_argument("--steps_per_call", type=int, default=1,
-                        help="(not ported beyond 1: the scan dispatcher)")
+                        help="K > 1: K steps per call of the multi-step dispatcher (a CUDA "
+                             "graph of the step replayed K times); needs --device_cache")
     parser.add_argument("--device_cache", type=str2bool, default=False,
                         help="decode the whole train split ONCE into one uint8 tensor on "
                              "the card and sample batches by gather there")
@@ -120,45 +132,97 @@ def build_config(args):
     return dataclasses.replace(cfg, train=train, data=data, loss=loss)
 
 
-def _refuse(args, cfg, device):
+def gpu_ids(args):
+    """The cards --gpu_ids lists, as ints ([] when it is not given)."""
+    text = str(args.gpu_ids or "").strip("[]").replace(" ", "")
+    return [int(c) for c in text.split(",") if c]
+
+
+def _refuse(args, device):
     if device.type == "cuda" and not torch.cuda.is_available():
         raise SystemExit("--device cuda: no CUDA device here (pass --device cpu for the "
                          "plain versions)")
-    if args.steps_per_call > 1:
-        raise SystemExit("--steps_per_call > 1 (the scan dispatcher) is not ported "
-                         "(ROADMAP Queue 1 item 5)")
-    if args.gpu_ids and len(str(args.gpu_ids).strip("[]").split(",")) > 1:
-        raise SystemExit("--gpu_ids lists more than one card: data parallelism (DDP) is "
-                         "not ported (ROADMAP Queue 1 item 5)")
+    cards = gpu_ids(args)
+    if device.type == "cuda" and cards:
+        have = torch.cuda.device_count()
+        if len(cards) > have or max(cards) >= have or len(set(cards)) < len(cards):
+            raise SystemExit(f"--gpu_ids {args.gpu_ids}: this machine has {have} card(s) "
+                             f"(0..{have - 1}); list each card once, at most {have}")
+    if args.steps_per_call > 1 and not args.device_cache:
+        raise SystemExit("--steps_per_call > 1 requires --device_cache true (the multi-step "
+                         "dispatcher samples from the device frame cache)")
     if args.device_cache and args.cpu_aug:
         raise SystemExit("--device_cache requires the on-device aug path")
-    if cfg.model.remat:
-        print("--remat true: rematerialization is not ported (ROADMAP Queue 1 item 6); the "
-              "step runs without it (batch 8 at 256² fits: 32.61 GiB fp32, 17.18 GiB bf16 "
-              "peak on an H100, PERF.md §2)")
+
+
+def _worker(argv):
+    """A spawned rank's run (its process group is up): its epoch records."""
+    return main(argv)[1]
 
 
 def main(argv=None):
-    """Train; returns (state, the loop's per-epoch records)."""
+    """Train; returns (state, the loop's per-epoch records).  With
+    --gpu_ids of several cards this process spawns one process per card and
+    returns (None, rank 0's records)."""
+    from facevae_tpu_torch import parallel
+
     args = parse_args(argv)
     cfg = build_config(args)
     device = torch.device(args.device)
-    _refuse(args, cfg, device)
+    _refuse(args, device)
+    cards = gpu_ids(args)
+    own_group = False
+    if not parallel.initialized():
+        if "WORLD_SIZE" in os.environ:                     # a launcher's process
+            parallel.init_distributed(device=args.device)
+            own_group = True
+        elif len(cards) > 1:
+            from facevae_tpu_torch.parallel.spawn import spawn
+            records = spawn(_worker, len(cards), list(argv if argv is not None else sys.argv[1:]),
+                            device=args.device, cards=cards,
+                            threads=max(1, torch.get_num_threads() // len(cards)))
+            return None, records[0]
+        elif cards:
+            parallel.init_distributed(0, 1, args.device, local_rank=cards[0])
+            own_group = True
+    try:
+        return _train(args, cfg, device)
+    finally:
+        if own_group:
+            torch.distributed.destroy_process_group()
 
+
+def _train(args, cfg, device):
+    from facevae_tpu_torch import parallel
     from facevae_tpu_torch.data import DatasetRepeater, FramesDataset, PrefetchLoader
     from facevae_tpu_torch.train.checkpoint import latest_checkpoint_epoch, load_checkpoint
     from facevae_tpu_torch.train.loop import train_loop
     from facevae_tpu_torch.train.state import create_train_state
 
+    group = torch.distributed.group.WORLD if parallel.initialized() else None
+    rank, world = parallel.rank(), parallel.world_size()
+    if device.type == "cuda":
+        device = torch.device("cuda", torch.cuda.current_device())
+    say = parallel.master_only_print
+    if cfg.model.remat:
+        say("--remat true: rematerialization is not ported (ROADMAP Queue 1 item 6); the "
+            "step runs without it (batch 8 at 256² fits: 32.61 GiB fp32, 17.18 GiB bf16 "
+            "peak on an H100, PERF.md §2)")
+    if group is not None:
+        say(f"data parallel: {world} rank(s) ({torch.distributed.get_backend(group)}), "
+            f"{cfg.train.batch_size} frames a rank a step, {cfg.train.batch_size * world} "
+            f"a step")
     if args.device_cache:
         from facevae_tpu_torch.data.device_cache import CachedLoader, DeviceFrameCache
         cache = DeviceFrameCache(cfg.data.root_dir, frame_shape=cfg.data.frame_shape,
-                                 num_workers=cfg.data.num_workers, device=device)
-        loader = CachedLoader(cache, batch_size=cfg.train.batch_size,
+                                 num_workers=cfg.data.num_workers, world=world, rank=rank,
+                                 device=device)
+        loader = CachedLoader(cache, batch_size=cfg.train.batch_size * world,
                               num_items=cache.num_identities * cfg.train.num_repeats,
                               seed=cfg.train.seed)
-        print(f"device cache: {cache.frames.shape[0]} frames "
-              f"({cache.frames.nbytes / 2**20:.0f} MiB) on {device}")
+        say(f"device cache: {cache.frames.shape[0]} frames "
+            f"({cache.frames.nbytes / 2**20:.0f} MiB) on {device}"
+            + (f" (rank 0's shard of {world})" if world > 1 else ""))
     else:
         # on-device aug (default): items are raw uint8 (source, driving)
         # pairs, augmented inside the step; --cpu_aug: the CPU transform
@@ -168,7 +232,8 @@ def main(argv=None):
                           on_device_aug=not args.cpu_aug),
             num_repeats=cfg.train.num_repeats)
         loader = PrefetchLoader(dataset, batch_size=cfg.train.batch_size,
-                                num_workers=cfg.data.num_workers, seed=cfg.train.seed)
+                                num_workers=cfg.data.num_workers, shard=(rank, world),
+                                seed=cfg.train.seed)
 
     # hang diagnosis: FACEVAE_WATCHDOG=<secs> dumps every thread's stack to
     # stderr on that period (non-fatal)
@@ -178,7 +243,7 @@ def main(argv=None):
         faulthandler.dump_traceback_later(wd, repeat=True, exit=False, file=sys.stderr)
 
     try:
-        state = create_train_state(cfg, device)
+        state = create_train_state(cfg, device, group=group)
         start_epoch = 0
         ckp = args.ckp
         if ckp == -1:
@@ -187,13 +252,13 @@ def main(argv=None):
             if latest is not None:
                 load_checkpoint(cfg.train.ckp_dir, latest, state)
                 start_epoch = state.epoch + 1
-                print(f"resumed from epoch {latest} (latest), continuing at {start_epoch} "
-                      f"(step {state.step})")
+                say(f"resumed from epoch {latest} (latest), continuing at {start_epoch} "
+                    f"(step {state.step})")
             ckp = 0
         if ckp > 0:
             load_checkpoint(cfg.train.ckp_dir, ckp, state)
             start_epoch = state.epoch + 1
-            print(f"resumed from epoch {ckp}, continuing at {start_epoch} (step {state.step})")
+            say(f"resumed from epoch {ckp}, continuing at {start_epoch} (step {state.step})")
         return state, train_loop(cfg, state, loader, start_epoch=start_epoch)
     finally:
         if wd > 0:

@@ -14,7 +14,7 @@ from typing import Dict, List, Optional
 import numpy as np
 
 from facevae_tpu_torch.data.image_io import write_png
-from facevae_tpu_torch.train.checkpoint import is_master
+from facevae_tpu_torch.parallel.mesh import is_master
 
 
 class ScalarLog:

@@ -1,9 +1,14 @@
-"""Epoch training loop (counterpart of facevae_tpu/train/loop.py, one device,
-without its multi-step scan mode).
+"""Epoch training loop (port of facevae_tpu/train/loop.py).
 
 Per iteration one train_step (G then D phases, both Adam updates and, by
-default, the on-device augmentation inside it).  The loop's thread never
-waits on the card inside an epoch:
+default, the on-device augmentation inside it); in scan mode
+(TrainConfig.steps_per_call K > 1 over the device frame cache, with the
+on-device augmentation) one call of train/scan.py's K-step dispatcher per
+K steps (a CUDA graph of the step replayed K times on the card).  With a
+process group (state.group) every rank runs this loop on its shard of the
+data; rank 0 alone prints, logs, visualizes (the whole global batch,
+gathered from the ranks once an epoch) and writes epoch files.  The loop's
+thread never waits on the card inside an epoch:
 
   - batches are decoded by the loader's thread pool, then pinned and copied
     to the card by a background thread on a side stream (the reference's
@@ -17,12 +22,13 @@ waits on the card inside an epoch:
     boundaries only, the checkpoint by a background thread.
 
 Each step's draws (augmentation, TPS, VAE eps) come from one
-torch.Generator on the card reseeded with seed * 2^32 + step, so a resumed
-run draws what an uninterrupted one would (the JAX loop folds the step into
-its key).  On KeyboardInterrupt or any exception, wherever it is raised in
-an epoch (the loader included), the state is saved as the epoch file of
-state.epoch before the loop stops or re-raises (quirk q5); an exception
-raised inside a step saves the state as that step left it.
+torch.Generator on the card reseeded with train/step.py:step_seed(seed,
+step, rank) (seed * 2^32 + step on rank 0), so a resumed run draws what an
+uninterrupted one would (the JAX loop folds the step into its key).  On
+KeyboardInterrupt or any exception, wherever it is raised in an epoch (the
+loader included), the state is saved as the epoch file of state.epoch
+before the loop stops or re-raises (quirk q5); an exception raised inside
+a step saves the state as that step left it.
 """
 from __future__ import annotations
 
@@ -35,22 +41,18 @@ from typing import Dict, List
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from facevae_tpu_torch.config import Config
-from facevae_tpu_torch.train.checkpoint import AsyncCheckpointer, is_master, save_checkpoint
+from facevae_tpu_torch.parallel.mesh import is_master, master_only_print
+from facevae_tpu_torch.train.checkpoint import AsyncCheckpointer, save_checkpoint
 from facevae_tpu_torch.train.logger import ScalarLog, Visualizer, save_visualization
 from facevae_tpu_torch.train.state import TrainState
-from facevae_tpu_torch.train.step import train_step
+from facevae_tpu_torch.train.step import step_seed, train_step
 
-_PROFILE_START = 10      # --profile_dir traces steps 10-14
+_PROFILE_START = 10      # --profile_dir traces steps 10-14 (scan mode: the second call)
 _PROFILE_STEPS = 5
 _SYNC_EVERY = 8          # steps between metric hand-overs to the fetch thread
-_NOT_PORTED = "(ROADMAP Queue 1 item 5)"
-
-
-def master_only_print(*args, **kwargs) -> None:
-    if is_master():
-        print(*args, **kwargs)
 
 
 def _device_prefetch(loader, device: torch.device, depth: int = 2):
@@ -183,12 +185,14 @@ class _MetricBuffer:
                 return
 
     def _process(self, group):
+        """group: [(losses_g, losses_d)], each loss a scalar or (scan
+        mode) a [K] tensor of K steps'."""
         if not group:
             return
         g_names, d_names = list(group[0][0]), list(group[0][1])
-        host = torch.stack([torch.stack([g[n].float() for n in g_names]
-                                        + [d[n].float() for n in d_names])
-                            for g, d in group]).cpu().numpy()
+        host = torch.cat([torch.stack([g[n].float().reshape(-1) for n in g_names]
+                                      + [d[n].float().reshape(-1) for n in d_names], 1)
+                          for g, d in group]).cpu().numpy()
         for row in host:
             g_row = {n: float(v) for n, v in zip(g_names, row)}
             d_row = {n: float(v) for n, v in zip(d_names, row[len(g_names):])}
@@ -240,16 +244,78 @@ def _stop_profiler(profiler, profile_dir):
                       f"({busy_ms / wall_ms:.1%})")
 
 
+def _gather(t: torch.Tensor, group) -> torch.Tensor:
+    """The ranks' ``t`` concatenated along dim 0, in rank order (every rank
+    calls; the JAX loop's global arrays)."""
+    parts = [torch.empty_like(t) for _ in range(dist.get_world_size(group))]
+    dist.all_gather(parts, t.contiguous(), group=group)
+    return torch.cat(parts)
+
+
+def _epoch_vis(state, cfg, visualizer, epoch, last_batch, last_metrics) -> str:
+    """The epoch's visualization of the last step's whole batch (gathered
+    from the ranks), drawn and written by rank 0; returns its timing."""
+    t0 = time.time()
+    batch, aux = last_batch, last_metrics["aux"]
+    if state.group is not None:
+        batch = tuple(_gather(b, state.group) for b in batch)
+        aux = {k: _gather(v, state.group) for k, v in aux.items()}
+    if not is_master():
+        return ""
+    aux = _host_aux(aux)
+    t1 = time.time()
+    s_np, d_np = (b.cpu() for b in batch)
+    t2 = time.time()
+    image = _visualize(visualizer, s_np, d_np, aux)
+    t3 = time.time()
+    save_visualization(cfg.train.vis_dir, epoch, image)
+    t4 = time.time()
+    return (f" [aux-get {t1 - t0:.1f} batch-get {t2 - t1:.1f}"
+            f" draw {t3 - t2:.1f} write {t4 - t3:.1f}]")
+
+
+def _scan_epoch(cfg, state, loader, scan, metrics_buf, profile):
+    """One epoch in scan mode: K steps per call of ``scan`` over the
+    loader's index tables (the remainder steps in one last, smaller call).
+    Returns (global frames, the last step's local (s, d), its metrics)."""
+    cache = loader.cache
+    n_frames, last_idx, last_metrics, profiler = 0, None, None, None
+    for cidx, (s_tab, d_tab) in enumerate(loader.iter_index_chunks(cfg.train.steps_per_call)):
+        if profile and cidx == 1:
+            profiler = _start_profiler(scan.device)
+        s_loc, d_loc = cache.local(s_tab), cache.local(d_tab)
+        last_metrics = scan(s_loc, d_loc)
+        if profiler is not None:
+            _stop_profiler(profiler, cfg.train.profile_dir)
+            profiler = None
+        n_frames += s_tab.size
+        metrics_buf.push(last_metrics["losses_g"], last_metrics["losses_d"])
+        metrics_buf.flush()
+        last_idx = (s_loc[-1], d_loc[-1])
+    if last_idx is None:
+        return 0, None, None
+    return n_frames, (cache.gather(last_idx[0]), cache.gather(last_idx[1])), last_metrics
+
+
 def train_loop(cfg: Config, state: TrainState, loader, start_epoch: int = 0,
                writer=None) -> List[dict]:
     """Train ``state`` (in place) over ``loader`` from ``start_epoch`` to
-    cfg.train.num_epochs.  Returns a record per epoch run: epoch, frames,
-    first_step, frames_per_s (the epoch line's), steps_s, wait_s (the
-    loop's thread waiting on the prefetch queue), ckpt_s, vis_s."""
-    if cfg.train.steps_per_call > 1:
-        raise NotImplementedError(f"steps_per_call > 1 (the scan dispatcher) is not ported "
-                                  f"{_NOT_PORTED}")
+    cfg.train.num_epochs.  Returns a record per epoch run: epoch, frames
+    (the ranks' together), first_step, frames_per_s (the epoch line's),
+    steps_s, wait_s (the loop's thread waiting on the prefetch queue),
+    ckpt_s, vis_s; in scan mode the last record's "scan" holds the
+    dispatcher's figures (capture seconds, memory pools, eager steps,
+    replays, captured launches).  Scan mode (steps_per_call > 1) needs the on-device
+    augmentation and a loader with iter_index_chunks (the frame cache's)."""
+    K = cfg.train.steps_per_call
+    fused_aug = cfg.data.on_device_aug
+    scan_mode = K > 1
+    if scan_mode and not (fused_aug and hasattr(loader, "iter_index_chunks")):
+        raise ValueError("steps_per_call > 1 needs the device frame cache's loader and the "
+                         "on-device augmentation")
     device = next(state.nets["afe"].parameters()).device
+    rank = dist.get_rank(state.group) if state.group is not None else 0
+    world = dist.get_world_size(state.group) if state.group is not None else 1
     if cfg.train.debug_nans:
         # reference parity: torch.autograd.set_detect_anomaly(True) (distributed.py:26)
         torch.autograd.set_detect_anomaly(True)
@@ -257,8 +323,12 @@ def train_loop(cfg: Config, state: TrainState, loader, start_epoch: int = 0,
         from tensorboardX import SummaryWriter
         writer = SummaryWriter(comment="facevae_tpu_torch")
 
-    fused_aug = cfg.data.on_device_aug
     generator = torch.Generator(device=device)
+    seed_of = lambda step: step_seed(cfg.train.seed, step, rank)  # noqa: E731
+    scan = None
+    if scan_mode:
+        from facevae_tpu_torch.train.scan import ScanStep
+        scan = ScanStep(state, loader.cache.frames, generator, seed_of)
     scalar_log = ScalarLog(cfg.train.log_file)
     visualizer = Visualizer()
     metrics_buf = _MetricBuffer(scalar_log)
@@ -271,9 +341,19 @@ def train_loop(cfg: Config, state: TrainState, loader, start_epoch: int = 0,
             loader.set_epoch(epoch)
             t_epoch = time.time()
             n_frames, wait, first_step = 0, 0.0, state.step
-            batches = _device_prefetch(loader, device)
+            if scan_mode:
+                if epoch == start_epoch and len(loader) % K:
+                    master_only_print(
+                        f"scan mode: {len(loader)} steps an epoch: {len(loader) // K} call(s) "
+                        f"of {K} and one of {len(loader) % K}")
+                n_frames, batch, metrics = _scan_epoch(cfg, state, loader, scan, metrics_buf,
+                                                       bool(cfg.train.profile_dir)
+                                                       and epoch == start_epoch)
+                if batch is not None:
+                    last_batch, last_metrics = batch, metrics
+            batches = None if scan_mode else _device_prefetch(loader, device)
             try:
-                for idx in range(len(loader)):
+                for idx in range(0 if scan_mode else len(loader)):
                     t_wait = time.perf_counter()
                     batch = next(batches, None)
                     wait += time.perf_counter() - t_wait
@@ -282,13 +362,13 @@ def train_loop(cfg: Config, state: TrainState, loader, start_epoch: int = 0,
                     s, d = batch[0], batch[1]
                     if cfg.train.profile_dir and state.step == _PROFILE_START:
                         profiler = _start_profiler(device)
-                    generator.manual_seed(cfg.train.seed * 2 ** 32 + state.step)
+                    generator.manual_seed(seed_of(state.step))
                     metrics = train_step(state, (s, d) if fused_aug else batch,
                                          generator=generator, fused_aug=fused_aug)
                     if profiler is not None and state.step >= _PROFILE_START + _PROFILE_STEPS:
                         _stop_profiler(profiler, cfg.train.profile_dir)
                         profiler = None
-                    n_frames += s.shape[0]
+                    n_frames += s.shape[0] * world
                     metrics_buf.push(metrics["losses_g"], metrics["losses_d"])
                     if len(metrics_buf.pending) >= _SYNC_EVERY:
                         metrics_buf.flush()
@@ -296,6 +376,7 @@ def train_loop(cfg: Config, state: TrainState, loader, start_epoch: int = 0,
 
                     if writer is not None and idx % cfg.train.vis_every == 0 and is_master():
                         # reference logger.py:286-299: scalars + image grid + text line
+                        # (rank 0's own batch)
                         metrics_buf.drain()
                         losses_g, losses_d = metrics_buf.last
                         index = epoch * len(loader) + idx
@@ -307,7 +388,8 @@ def train_loop(cfg: Config, state: TrainState, loader, start_epoch: int = 0,
                         line = "; ".join(f"{k} - {v:.5f}" for k, v in all_losses.items())
                         writer.add_text("log", f"{str(epoch).zfill(8)}) {line}", index)
             finally:
-                batches.close()
+                if batches is not None:
+                    batches.close()
             if profiler is not None:          # epoch shorter than the trace window
                 _stop_profiler(profiler, cfg.train.profile_dir)
                 profiler = None
@@ -320,17 +402,8 @@ def train_loop(cfg: Config, state: TrainState, loader, start_epoch: int = 0,
             # behind the checkpointer's device-to-host copy of the state
             t_vis = time.time()
             vis_detail = ""
-            if last_metrics is not None and is_master():
-                aux = _host_aux(last_metrics["aux"])
-                t1 = time.time()
-                s_np, d_np = (b.cpu() for b in last_batch)
-                t2 = time.time()
-                image = _visualize(visualizer, s_np, d_np, aux)
-                t3 = time.time()
-                save_visualization(cfg.train.vis_dir, epoch, image)
-                t4 = time.time()
-                vis_detail = (f" [aux-get {t1 - t_vis:.1f} batch-get {t2 - t1:.1f}"
-                              f" draw {t3 - t2:.1f} write {t4 - t3:.1f}]")
+            if last_metrics is not None:
+                vis_detail = _epoch_vis(state, cfg, visualizer, epoch, last_batch, last_metrics)
             t_vis = time.time() - t_vis
             t_ckpt = time.time()
             if (epoch + 1) % cfg.train.checkpoint_freq == 0:
@@ -356,6 +429,10 @@ def train_loop(cfg: Config, state: TrainState, loader, start_epoch: int = 0,
         metrics_buf.close()
         scalar_log.close()
     checkpointer.wait()
+    if scan is not None and records:
+        records[-1]["scan"] = dict(scan.stats, eager_steps=scan.eager_steps,
+                                   replays=scan.replays,
+                                   captured_launches=scan.captured_launches)
     return records
 
 

@@ -11,6 +11,12 @@ Quirk q7: the contrastive head's parameters are frozen (its BatchNorm
 statistics still train) unless LossConfig.train_contrastive_head is set,
 which adds them to the generator optimizer.
 
+On the card both optimizers are capturable (their step counts live on the
+card), so a CUDA graph can hold the whole step (train/scan.py).  With a
+process group (``group``) every rank holds the same state: the step
+averages gradients over the ranks and BatchNorm its statistics
+(parallel/mesh.py).
+
 A state built here holds seeded random weights, teachers included: enough
 for a benchmark.  With LossConfig.pretrained_dir set, the teachers found
 there (vgg19.npz, vggface.npz, hopenet.npz: the JAX package's files) replace
@@ -22,7 +28,7 @@ package's epoch files.
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, Optional
+from typing import Any, Dict, Optional
 
 import torch
 import torch.nn as nn
@@ -32,6 +38,7 @@ from facevae_tpu_torch.losses import ContrastiveHead, PerceptualLoss
 from facevae_tpu_torch.losses.pretrained import load_pretrained
 from facevae_tpu_torch.models import D_MODEL_NAMES, G_MODEL_NAMES, Hopenet, build_models
 from facevae_tpu_torch.nn import init_parameters
+from facevae_tpu_torch.parallel.mesh import sync_batchnorm
 
 
 @dataclasses.dataclass
@@ -42,6 +49,7 @@ class TrainState:
     d_opt: torch.optim.Adam
     step: int = 0
     epoch: int = 0                  # as the JAX state's; train/checkpoint.py keeps it
+    group: Optional[Any] = None     # the data-parallel process group, or None
 
 
 def contrastive_in_dim(cfg: Config) -> int:
@@ -73,21 +81,28 @@ def make_optimizers(cfg: Config, nets):
     for p in head:
         p.requires_grad_(cfg.loss.train_contrastive_head)
     d_params = [p for n in D_MODEL_NAMES for p in nets[n].parameters()]
-    kw = dict(lr=t.lr, betas=(t.adam_b1, t.adam_b2), eps=1e-8)
+    # capturable: the step count on the card, where a CUDA graph can advance
+    # it (torch offers it on the card only)
+    capturable = g_params[0].is_cuda
+    kw = dict(lr=t.lr, betas=(t.adam_b1, t.adam_b2), eps=1e-8, capturable=capturable)
     return torch.optim.Adam(g_params, **kw), torch.optim.Adam(d_params, **kw)
 
 
 def create_train_state(cfg: Config, device=None,
-                       nets: Optional[Dict[str, nn.Module]] = None) -> TrainState:
+                       nets: Optional[Dict[str, nn.Module]] = None,
+                       group=None) -> TrainState:
     """A train state on ``device`` (default: the card), over ``nets`` or
     freshly seeded ones, with the teachers of ``cfg.loss.pretrained_dir``
     loaded into them when it is set.  The trainable nets and the head are
-    put in training mode; Hopenet stays in eval form."""
+    put in training mode; Hopenet stays in eval form.  ``group`` (a
+    torch.distributed process group) makes the state data-parallel: its
+    BatchNorm layers synchronize over it and train_step averages over it."""
     device = torch.device("cuda" if device is None else device)
     nets = nets if nets is not None else build_all_modules(cfg, device)
     if cfg.loss.pretrained_dir:
         load_pretrained(nets, cfg.loss.pretrained_dir)
     for m in nets.values():
         m.train()
+    sync_batchnorm(nets, group)
     g_opt, d_opt = make_optimizers(cfg, nets)
-    return TrainState(cfg=cfg, nets=nets, g_opt=g_opt, d_opt=d_opt)
+    return TrainState(cfg=cfg, nets=nets, g_opt=g_opt, d_opt=d_opt, group=group)

@@ -152,8 +152,9 @@ def test_prefetch_loader_matches_the_jax_loader(tree):
 
 def test_device_cache_matches_the_jax_cache(tree):
     """The frame table, its layout, sample_indices, gathers and an epoch of
-    CachedLoader batches, on the CPU; the budget error; a mesh and the
-    scan feed refused, naming the ROADMAP item."""
+    CachedLoader batches, on the CPU; the budget error; more shards than
+    identities refused; the scan feed's tables are the epoch's batches'.
+    (The sharded cache: tests/test_torch_dp.py.)"""
     shape = (SIZE, SIZE, 3)
     port = device_cache.DeviceFrameCache(tree, frame_shape=shape, num_workers=2, device="cpu")
     ref = jax_cache.DeviceFrameCache(tree, frame_shape=shape, num_workers=2)
@@ -181,7 +182,10 @@ def test_device_cache_matches_the_jax_cache(tree):
     for mod, kw in ((device_cache, {"device": "cpu"}), (jax_cache, {})):
         with pytest.raises(ValueError, match="device cache budget"):
             mod.DeviceFrameCache(tree, frame_shape=shape, max_bytes=1000, **kw)
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 5"):
-        device_cache.DeviceFrameCache(tree, frame_shape=shape, mesh=object(), device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 5"):
-        la.iter_index_chunks(2)
+    with pytest.raises(ValueError, match="4 shards > 3 identities"):
+        device_cache.DeviceFrameCache(tree, frame_shape=shape, world=4, device="cpu")
+    chunks = list(la.iter_index_chunks(2))
+    assert [c[0].shape for c in chunks] == [(2, 4), (1, 4)]
+    rows = [(s, d) for cs, cd in chunks for s, d in zip(cs, cd)]
+    for (s, d), (si, di) in zip(la, rows, strict=True):
+        assert torch.equal(s, port.gather(si)) and torch.equal(d, port.gather(di))

@@ -18,8 +18,8 @@ train/cli.py) against the JAX package and the root train.py, on the CPU.
   saves; an exception from the loader after a step saves the stepped state
   and is raised again.
 - The refusals: --device cuda without a card ("no CUDA device"),
-  --steps_per_call > 1 and --gpu_ids of two cards (ROADMAP Queue 1 item 5),
-  --device_cache with --cpu_aug.
+  --steps_per_call > 1 without --device_cache, --gpu_ids of more cards
+  than the machine has, --device_cache with --cpu_aug.
 - The prefetch thread and the metric buffer on the CPU: batches in order,
   a loader error raised to the consumer, every loss logged in order; the
   --profile_dir trace written.
@@ -209,15 +209,20 @@ def test_a_loader_crash_saves_the_state(tmp_path):
         assert torch.equal(a, b), k
 
 
-def test_cli_refuses_what_is_not_here(tree, tmp_path):
+def test_cli_refuses_what_is_not_here(tree, tmp_path, monkeypatch):
     if not torch.cuda.is_available():
         with pytest.raises(SystemExit, match="no CUDA device"):
             cli.main(_argv(tree, tmp_path)[:2])
-    for extra, match in ((["--steps_per_call", "2"], "ROADMAP Queue 1 item 5"),
-                         (["--gpu_ids", "0,1"], "ROADMAP Queue 1 item 5"),
+    for extra, match in ((["--steps_per_call", "2"], "requires --device_cache"),
                          (["--device_cache", "true", "--cpu_aug", "true"], "on-device aug")):
         with pytest.raises(SystemExit, match=match):
             cli.main(_argv(tree, tmp_path, *extra))
+    # a machine of one card: two listed cards (or card 1) stop the run
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 1)
+    for ids in ("0,1", "1"):
+        with pytest.raises(SystemExit, match="this machine has 1 card"):
+            cli.main(_argv(tree, tmp_path, "--gpu_ids", ids)[:2] + ["--gpu_ids", ids])
     assert not (tmp_path / "ckp").exists()
 
 
