@@ -141,10 +141,13 @@ Phases, each fatal on failure (exit code 1, no result line):
               Last, bf16 with --device_cache --steps_per_call 4 --gpu_ids 0
               (the multi-step dispatcher through a one-card NCCL group): 6
               steps, a call of 4 and the remainder's of 2, 2 eager warm-up
-              steps and 4 replays, launches as the eager loop's; and
-              --gpu_ids of more cards than the machine has: stopped with
-              a message.
-     dp       data parallelism on the one card: ModelConfig() fp32 at batch
+              steps and 4 replays, launches as the eager loop's; the same
+              without --gpu_ids and with the CLI's default --remat true
+              (every run before passes --remat false): a remat step
+              captured and replayed; and --gpu_ids of more cards than the
+              machine has: stopped with a message.
+     dp       data parallelism on the one card (remat off, as before remat
+              was ported, here and in scan): ModelConfig() fp32 at batch
               8, four steps under torch.use_deterministic_algorithms(True)
               through a one-rank NCCL group against the same steps with no
               group: losses, gradients, parameters, buffers and Adam states
@@ -168,6 +171,24 @@ Phases, each fatal on failure (exit code 1, no result line):
               capture's seconds, the graph path's launches (captured x
               replays, as the eager step's); tiny_config() under
               deterministic algorithms: the same bits both ways.
+     remat    rematerialization at full width under deterministic
+              algorithms: fp32 and bf16 at batch 8 and fp32 at batch 16,
+              the step with ModelConfig.remat and without from the same
+              seeded nets, images and TPS draw: peak memory allocated, ms
+              a step (a second step), the warp launches a step by kernel
+              (the same both ways); at batch 8 the remat step's losses,
+              gradients and state after (buffers, Adam moments and steps)
+              within SPREAD x the plain step's own spread (run again, and on
+              images nudged by NUDGE) + TRAIN_TOL, and how many bit for
+              bit; the fp32 batch-8 peak with remat below the one without.
+     variants every EFE variant (conv, conv2, conv3, conv4, conv5, conv6,
+              linear, lin_conv) at 256x256 with ModelConfig() widths (conv4
+              with a last encoder width of 64): InferencePipeline's drive
+              batch of 8 (ms, finite, kernels 1 and 4 once each); each
+              variant's EFE at its CPU test's size on the card against the
+              CPU, eval and training forms (VARIANT_TOL); one fp32 remat
+              training step of linear at batch 8 (losses and both Adam
+              states finite, its launches).
   9. probes   the probe path: the run() of each of the four probes of
               facevae_tpu_torch/probes/ (TPU kernels 7-10, csrc/probe_*.cu)
               at the probe's own shapes, as its entry point calls it, with
@@ -188,8 +209,8 @@ Phases, each fatal on failure (exit code 1, no result line):
               (probe 7: volT's permuted view; probe 8: its fp32 source made
               from rows3 inside the timed call).
 Then a JSON line of kernel results (``launches_by_path`` per main path,
-``eval``, ``train_loop`` and the graph path's ``scan_float32`` /
-``scan_bfloat16`` included; kernels 1 and 4 also ``eval_n1``,
+``eval``, ``train_loop``, ``remat``, ``variants`` and the graph path's
+``scan_float32`` / ``scan_bfloat16`` included; kernels 1 and 4 also ``eval_n1``,
 kernel 1 also ``aug``), the eval rates, the training loop's rates, the
 dp and scan figures, the card's name and power limit, and the last line
 {"ok": true, "device": {...}}.  There is no CPU fallback: without a CUDA
@@ -312,6 +333,22 @@ TRAIN_TREE, TRAIN_REPEATS = (4, 2, 6), 6
 SCAN_CALLS, SCAN_HELD, SCAN_SEED = (2, 1, 4, 2), 2, 1
 SCAN_PIPE = 4                     # the eager loop's steps timed back to back in phase scan
 DP_SEEDS = (7, 8, 9, 10)          # phase dp's full-width steps, the last three timed
+# the remat phase's full-width steps: (dtype, batch); batch 8 is held to the
+# step without remat
+REMAT_CASES = (("float32", 8), ("bfloat16", 8), ("float32", 16))
+# the variants phase: full-width changes (conv4's latent of 256 must
+# unflatten into its encoder map, 2 x 2 x 64); each variant's CPU test size
+# (tests/test_torch_variants*.py): (image size, ModelConfig changes, batch);
+# card vs CPU limits of max|cpu| (the fp32 tests' tolerances; conv6's
+# keypoints: the CPU softmax's sequential fp32 sum over its (256, 64, 64)
+# volume, 5e-4 of the heatmap off the float64 answer)
+VARIANT_FULL = {"conv4": {"efe_down_seq": (3, 32, 64, 128, 256, 64)}}
+VARIANT_CPU = {"conv": (128, {}, 2), "conv2": (128, {}, 2), "conv5": (128, {}, 2),
+               "conv4": (128, {"efe_down_seq": (3, 8, 16, 24, 32, 256)}, 2),
+               "conv3": (256, {"efe_up_seq": (32, 16, 8)}, 1), "conv6": (256, {"depth": 16}, 1),
+               "linear": (256, {}, 1), "lin_conv": (256, {}, 1)}
+VARIANT_TOL = {"eval": 1e-4, "train": 1e-3}
+CONV6_KP_TOL = 3e-3
 
 
 BENCH_MS = {}                     # phases 7-8's median step ms by dtype, for phase scan
@@ -1556,11 +1593,14 @@ def phase_train_loop(card):
               f"filters), {sum(os.path.getsize(p) for p in paths)} bytes in train/; read_png "
               f"{read_ms:.2f} ms a frame on the host; {steps} steps an epoch at batch {N_BATCH}")
 
-        def argv(run, *extra):
-            return ["--root_dir", root, "--batch_size", str(N_BATCH), "--num_repeats",
-                    str(TRAIN_REPEATS), "--keep_checkpoints", "1", "--remat", "false",
-                    "--ckp_dir", f"{tmp.name}/{run}/ckp", "--vis_dir", f"{tmp.name}/{run}/vis",
-                    "--log_file", f"{tmp.name}/{run}/log.txt", *extra]
+        def argv(run, *extra, remat=False):
+            # every run but the last measures the step without remat, as
+            # before remat was ported; that one takes the CLI's default
+            return (["--root_dir", root, "--batch_size", str(N_BATCH), "--num_repeats",
+                     str(TRAIN_REPEATS), "--keep_checkpoints", "1"]
+                    + ([] if remat else ["--remat", "false"])
+                    + ["--ckp_dir", f"{tmp.name}/{run}/ckp", "--vis_dir", f"{tmp.name}/{run}/vis",
+                       "--log_file", f"{tmp.name}/{run}/log.txt", *extra])
 
         total, runs = {}, {}
 
@@ -1625,6 +1665,22 @@ def phase_train_loop(card):
               f"bf16 scan: {scan['eager_steps']} eager steps, {scan['replays']} replays")
         pairs = _log_pairs(f"{tmp.name}/e/log.txt")
         check(len(pairs) == 1, f"bf16 scan log {pairs}")
+        gc.collect()
+        torch.cuda.empty_cache()
+        # the CLI's default --remat true through the dispatcher: a remat
+        # step captured and replayed (no process group)
+        state = run("bf16 scan remat", argv("g", "--num_epochs", "1", "--bf16", "true",
+                                            "--device_cache", "true", "--steps_per_call", "4",
+                                            "--num_repeats", str(2 * TRAIN_REPEATS), remat=True),
+                    "bfloat16", 2, 1, [(0, 0)], per_epoch=2 * steps)
+        check(state.cfg.model.remat, "the CLI's default did not rematerialize")
+        del state
+        scan = runs["bf16 scan remat"][-1]["scan"]
+        print(f"[train_loop] bf16 scan remat (--remat true, the default): "
+              f"{scan['eager_steps']} eager steps, {scan['replays']} replays, capture "
+              f"{scan['capture_s']:.2f} s, graph pool {scan['graph_pool_bytes'] / 2 ** 30:.2f} GiB")
+        check(scan["eager_steps"] == 2 and scan["replays"] == 2 * steps - 2,
+              f"bf16 scan remat: {scan['eager_steps']} eager steps, {scan['replays']} replays")
         # more cards than the machine has stop the run before it starts
         have = torch.cuda.device_count()
         try:
@@ -1674,12 +1730,12 @@ def phase_dp(card):
     import numpy as np
     import torch
     from facevae_tpu_torch import parallel
-    from facevae_tpu_torch.config import Config, tiny_config
+    from facevae_tpu_torch.config import Config, ModelConfig, tiny_config
     from facevae_tpu_torch.parallel import dp_check
     from facevae_tpu_torch.parallel.spawn import start
     from facevae_tpu_torch.train import build_all_modules, create_train_state, train_step
     device = torch.device("cuda")
-    cfg = Config()
+    cfg = Config(model=ModelConfig(remat=False))
     size = cfg.model.image_size
     g = torch.Generator(device=device).manual_seed(5)
     batch = tuple(torch.rand(N_BATCH, size, size, 3, generator=g, device=device)
@@ -1725,7 +1781,7 @@ def phase_dp(card):
     gc.collect()
     torch.cuda.empty_cache()
 
-    tiny = tiny_config()
+    tiny = _no_remat(tiny_config())
     steps = []
     for seed in (0, 1):
         _, images, tp = tiny_step_inputs(seed)
@@ -1827,6 +1883,23 @@ def _max_abs_diffs(a, b):
     return torch.stack([(x.double() - y.double()).abs().max() for x, y in zip(a, b)]).cpu()
 
 
+def _named_step_tensors(state):
+    """([(name, parameter)] of every trained parameter that has a gradient,
+    [(name, tensor)] of the state that is not a parameter: every buffer,
+    both Adam moments and step counts, named "net.param:kind")."""
+    import torch
+    trained = {id(p) for opt in (state.g_opt, state.d_opt) for g in opt.param_groups
+               for p in g["params"]}
+    params = [(f"{n}.{k}", p) for n, net in state.nets.items()
+              for k, p in net.named_parameters() if id(p) in trained and p.grad is not None]
+    pname = {id(p): f"{n}.{k}" for n, net in state.nets.items() for k, p in net.named_parameters()}
+    rest = ([(f"{n}.{k}:buffer", b) for n, net in state.nets.items()
+             for k, b in net.named_buffers()]
+            + [(f"{pname[id(p)]}:{k}", v) for opt in (state.g_opt, state.d_opt)
+               for p, st in opt.state.items() for k, v in st.items() if torch.is_tensor(v)])
+    return params, rest
+
+
 def _held_replays(scan, frames, s_tab, d_tab, start, n):
     """Steps start..start+n-1 of the dispatcher, each from the state it
     left: the eager step three times from that state (restored in place
@@ -1851,15 +1924,7 @@ def _held_replays(scan, frames, s_tab, d_tab, start, n):
                 for i, st in enumerate(opt.state.values()) for k, v in st.items()
                 if torch.is_tensor(v)])
     names, tensors = [n for n, _ in named], [t for _, t in named]
-    trained = {id(p) for opt in (state.g_opt, state.d_opt) for g in opt.param_groups
-               for p in g["params"]}
-    gnamed = [(f"{n}.{k}", p) for n, net in state.nets.items()
-              for k, p in net.named_parameters() if id(p) in trained and p.grad is not None]
-    pname = {id(p): f"{n}.{k}" for n, net in state.nets.items() for k, p in net.named_parameters()}
-    snamed = ([(f"{n}.{k}:buffer", b) for n, net in state.nets.items()
-               for k, b in net.named_buffers()]
-              + [(f"{pname[id(p)]}:{k}", v) for opt in (state.g_opt, state.d_opt)
-                 for p, st in opt.state.items() for k, v in st.items() if torch.is_tensor(v)])
+    gnamed, snamed = _named_step_tensors(state)
     snames, stensors = [n for n, _ in snamed], [t for _, t in snamed]
 
     def grads():
@@ -1968,6 +2033,41 @@ def _scan_graph(cfg, frames, s_tab, d_tab, calls, held=0):
     return torch.cat(rows).cpu(), state, scan, info
 
 
+def _no_remat(cfg):
+    """cfg with ModelConfig.remat off (the phases that measured the step
+    before remat was ported keep measuring it without)."""
+    import dataclasses
+    return dataclasses.replace(cfg, model=dataclasses.replace(cfg.model, remat=False))
+
+
+def _hold_tensors(rows, tols, what, bad):
+    """Hold rows [(names, max|x - ref|, spread, max|ref|)] of tensors
+    (gradients, or buffers / Adam moments / steps named "net.param:kind")
+    as phase 6 holds gradients: within SPREAD x spread + tols' grad share
+    of max|ref|, floored at grad_floor x the largest of its kind in its
+    net.  Appends what fails to ``bad``; returns ((worst err/limit, where),
+    tensors bit for bit, tensors)."""
+    import torch
+    worst, same, count = (0.0, ""), 0, 0
+    for k, (tnames, err, spread, scale) in enumerate(rows):
+        kinds = [n.split(".")[0] + ":" + (n.rsplit(":", 1)[1] if ":" in n else "grad")
+                 for n in tnames]
+        top = {}
+        for kind, v in zip(kinds, scale.tolist()):
+            top[kind] = max(top.get(kind, 0.0), v)
+        scale = torch.maximum(scale, tols["grad_floor"] * torch.tensor(
+            [top[kind] for kind in kinds], dtype=scale.dtype))
+        lim = SPREAD * spread + tols["grad"] * scale
+        ratio = torch.where(lim > 0, err / lim, torch.where(err > 0, float("inf"), 0.0))
+        j = int(ratio.argmax())
+        worst = max(worst, (float(ratio[j]), f"step {k} {tnames[j]}"))
+        same += int((err == 0).sum())
+        count += err.numel()
+        bad += [f"step {k} {what} {tnames[j]}: {float(err[j]):.3e} > {float(lim[j]):.3e}"
+                for j in torch.nonzero(~(err <= lim)).flatten().tolist()]
+    return worst, same, count
+
+
 def phase_scan(card):
     """The multi-step dispatcher (train/scan.py) on the card over frames on
     the card (a [32,256,256,3] uint8 tensor, what the frame cache holds)
@@ -2004,7 +2104,7 @@ def phase_scan(card):
                     for _ in range(2))
     paths, rows = {}, {}
     for dtype in ("float32", "bfloat16"):
-        cfg = Config(model=ModelConfig(compute_dtype=dtype))
+        cfg = Config(model=ModelConfig(compute_dtype=dtype, remat=False))
         gl, st, scan, gi = _scan_graph(cfg, frames, s_tab, d_tab, calls, held=SCAN_HELD)
         names = list(scan.names[0]) + list(scan.names[1])
         tols = TRAIN_TOL if dtype == "float32" else BF16_TRAIN_TOL
@@ -2028,26 +2128,8 @@ def phase_scan(card):
         # floored at grad_floor x the largest of its kind in its net.  Parameters are not held one
         # by one: Adam turns the rounding noise of a gradient that is zero
         # but for noise (a conv bias before BatchNorm) into a step of +-lr.
-        hold = {}
-        for what, rows_ in (("gradients", gi["held_grads"]), ("state", gi["held_state"])):
-            w_, same_, count_ = (0.0, ""), 0, 0
-            for k, (tnames, err, spread, scale) in enumerate(rows_):
-                kinds = [n.split(".")[0] + ":" + (n.rsplit(":", 1)[1] if ":" in n else "grad")
-                         for n in tnames]
-                top = {}
-                for kind, v in zip(kinds, scale.tolist()):
-                    top[kind] = max(top.get(kind, 0.0), v)
-                scale = torch.maximum(scale, tols["grad_floor"] * torch.tensor(
-                    [top[kind] for kind in kinds], dtype=scale.dtype))
-                lim = SPREAD * spread + tols["grad"] * scale
-                ratio = torch.where(lim > 0, err / lim, torch.where(err > 0, float("inf"), 0.0))
-                j = int(ratio.argmax())
-                w_ = max(w_, (float(ratio[j]), f"step {k} {tnames[j]}"))
-                same_ += int((err == 0).sum())
-                count_ += err.numel()
-                bad += [f"step {k} {what} {tnames[j]}: {float(err[j]):.3e} > {float(lim[j]):.3e}"
-                        for j in torch.nonzero(~(err <= lim)).flatten().tolist()]
-            hold[what] = (w_, same_, count_)
+        hold = {what: _hold_tensors(rows_, tols, what, bad)
+                for what, rows_ in (("gradients", gi["held_grads"]), ("state", gi["held_state"]))}
         want = _loop_counts(gi["launches"], dtype, calls[2], 2)
         captured = {k: v for k, v in scan.captured_launches.items() if v}
         st_ = scan.stats
@@ -2105,7 +2187,7 @@ def phase_scan(card):
                        **{f"held_{w}_worst": v[0][0] for w, v in hold.items()},
                        **{f"held_{w}_bit_for_bit": v[1] / v[2] for w, v in hold.items()}}
 
-    tiny = tiny_config()
+    tiny = _no_remat(tiny_config())
     frames = torch.from_numpy(rs.randint(0, 256, (8, 64, 64, 3)).astype(np.uint8)).to(device)
     s_tab, d_tab = (torch.from_numpy(rs.randint(0, 8, (4, 2))).to(device) for _ in range(2))
     torch.use_deterministic_algorithms(True)
@@ -2126,6 +2208,331 @@ def phase_scan(card):
           f"deterministic graph steps differ: {diff} losses, state {bad[:8]}")
     paths["scan_tiny_det"] = det_launches
     return paths, rows
+
+
+def _remat_run(base, dtype, remat, images, timed):
+    """One step of ModelConfig(compute_dtype=dtype, remat=remat) from a copy
+    of ``base`` (the seeded nets, on the host) on ``images``, the TPS draw
+    from a generator seeded 3; with ``timed`` a second step after it, timed
+    with the launches it made.  Returns {"losses", "grads", "state" (the
+    first step's, on the host: names and tensors), "peak" (memory allocated
+    over the steps), "ms", "launches"}."""
+    import copy
+    import torch
+    from facevae_tpu_torch.config import Config, ModelConfig
+    from facevae_tpu_torch.ops import fast_warp
+    from facevae_tpu_torch.train import create_train_state, train_step
+    device = images[0].device
+    cfg = Config(model=ModelConfig(compute_dtype=dtype, remat=remat))
+    state = create_train_state(cfg, device, {n: copy.deepcopy(m).to(device)
+                                             for n, m in base.items()})
+    gen = torch.Generator(device=device).manual_seed(3)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    out = train_step(state, images, generator=gen)
+    params, rest = _named_step_tensors(state)
+    r = {"losses": _loss_vec(out).cpu(), "names": list(out["losses_g"]) + list(out["losses_d"]),
+         "grads": ([n for n, _ in params], [p.grad.cpu() for _, p in params]),
+         "state": ([n for n, _ in rest], [t.detach().cpu() for _, t in rest])}
+    if timed:
+        fast_warp.reset_launch_counts()
+        r["host_ms"], r["ms"] = _timed(lambda: train_step(state, images, generator=gen), 1)
+        r["launches"] = dict(fast_warp.launches)
+    r["peak"] = torch.cuda.max_memory_allocated()
+    del state, out, params, rest
+    gc.collect()
+    torch.cuda.empty_cache()
+    return r
+
+
+def _remat_windows(base, images):
+    """One fp32 remat step from a copy of ``base`` with the peak memory
+    allocated in each window of it: from the step's start to the first
+    recompute (the forward and the backward's first part), then from each
+    region's recompute to the next one's (that region's recompute and
+    backward, and the backward between): [(the region's net, peak bytes)],
+    in the backward's order."""
+    import copy
+    import torch
+    from facevae_tpu_torch import remat
+    from facevae_tpu_torch.config import Config, ModelConfig
+    from facevae_tpu_torch.train import create_train_state, train_step
+    device = images[0].device
+    state = create_train_state(Config(model=ModelConfig(remat=True)), device,
+                               {n: copy.deepcopy(m).to(device) for n, m in base.items()})
+    windows = [["forward", 0]]
+
+    class Region(remat._Region):
+        def __enter__(self):
+            if self.replay:
+                windows[-1][1] = torch.cuda.max_memory_allocated()
+                torch.cuda.reset_peak_memory_stats()
+                windows.append([self.tape.name, 0])
+            return super().__enter__()
+    plain_region, remat._Region = remat._Region, Region
+    try:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        train_step(state, images, generator=torch.Generator(device=device).manual_seed(3))
+        windows[-1][1] = torch.cuda.max_memory_allocated()
+    finally:
+        remat._Region = plain_region
+    del state
+    gc.collect()
+    torch.cuda.empty_cache()
+    return [tuple(w) for w in windows]
+
+
+def phase_remat(card):
+    """Rematerialization at full width (ModelConfig(), 256x256), under
+    torch.use_deterministic_algorithms(True) (phase 6's strict mode): for
+    each of REMAT_CASES, the step with remat and without it from the same
+    seeded nets (built once on the card, kept on the host, copied in for
+    each run), on the same seeded images and TPS draw: peak memory
+    allocated (over the step and a second, timed one), ms a step (the
+    second), the warp launches of that step by kernel (the same with and
+    without remat: kernels 1 and 4 launch as often).  At batch 8 the remat
+    step is held to the plain one: the losses, the gradients it applied
+    and the state after it (every buffer, both Adam moments and step
+    counts), within SPREAD x the plain step's own spread (run again, and
+    on images nudged by NUDGE) + TRAIN_TOL (bf16: BF16_TRAIN_TOL), as
+    phase scan holds a replay; printed, how many are bit for bit.  The
+    fp32 batch-8 peak with remat must be the lower."""
+    import torch
+    from facevae_tpu_torch.config import Config
+    from facevae_tpu_torch.train import build_all_modules
+    device = torch.device("cuda")
+    base = {n: m.cpu() for n, m in build_all_modules(Config(), device).items()}
+    size = Config().model.image_size
+    paths, rows, bad = {}, {}, []
+    torch.use_deterministic_algorithms(True)
+    try:
+        for dtype, batch in REMAT_CASES:
+            g = torch.Generator(device=device).manual_seed(batch)
+            images = tuple(torch.rand(batch, size, size, 3, generator=g, device=device)
+                           for _ in range(4))
+            plain = _remat_run(base, dtype, False, images, True)
+            rem = _remat_run(base, dtype, True, images, True)
+            tag = f"{dtype} batch {batch}"
+            row = {"peak_gib": plain["peak"] / 2 ** 30, "remat_peak_gib": rem["peak"] / 2 ** 30,
+                   "ms": plain["ms"], "remat_ms": rem["ms"], "launches": plain["launches"],
+                   "remat_launches": rem["launches"]}
+            want = _want(rem["launches"], dtype, 1, deterministic=True)
+            check(rem["launches"] == plain["launches"] == want,
+                  f"{tag}: launches with remat {rem['launches']}, without {plain['launches']}, "
+                  f"want {want}")
+            for k, v in rem["launches"].items():
+                paths[k] = paths.get(k, 0) + v
+            print(f"[remat] {card}: ModelConfig() {tag}, deterministic: peak memory allocated "
+                  f"{row['peak_gib']:.2f} GiB without remat, {row['remat_peak_gib']:.2f} GiB "
+                  f"with ({row['remat_peak_gib'] / row['peak_gib'] - 1:+.1%}); ms a step "
+                  f"{plain['ms']:.1f} without, {rem['ms']:.1f} with "
+                  f"({rem['ms'] / plain['ms'] - 1:+.1%}); launches a step, both "
+                  f"{ {k: v for k, v in rem['launches'].items() if v} }")
+            if batch == N_BATCH:
+                again = _remat_run(base, dtype, False, images, False)
+                gn = torch.Generator(device=device).manual_seed(batch + 1)
+                nudged = tuple(x * (1 + NUDGE * torch.randn(x.shape, generator=gn, device=device))
+                               for x in images)
+                nud = _remat_run(base, dtype, False, nudged, False)
+                tols = TRAIN_TOL if dtype == "float32" else BF16_TRAIN_TOL
+                spread = torch.maximum((again["losses"] - plain["losses"]).abs(),
+                                       (nud["losses"] - plain["losses"]).abs()).double()
+                err = (rem["losses"] - plain["losses"]).abs().double()
+                lim = SPREAD * spread + tols["loss"] * plain["losses"].abs().double()
+                worst = float((err / lim.clamp_min(1e-30)).max())
+                bad += [f"{tag} loss {n}: {float(e):.3e} > {float(m):.3e}"
+                        for n, e, m in zip(plain["names"], err, lim) if not e <= m]
+                hold = {}
+                for what in ("grads", "state"):
+                    names, ref = plain[what]
+                    sp = torch.maximum(_max_abs_diffs(again[what][1], ref),
+                                       _max_abs_diffs(nud[what][1], ref))
+                    rows_ = [(names, _max_abs_diffs(rem[what][1], ref), sp,
+                              torch.stack([t.double().abs().max() for t in ref]))]
+                    hold[what] = _hold_tensors(rows_, tols, f"{tag} {what}", bad)
+                same_losses = bool(torch.equal(rem["losses"], plain["losses"]))
+                print(f"[remat] {tag}: the remat step against the plain one: losses "
+                      f"{'bit for bit' if same_losses else f'worst err/limit {worst:.3f}'}; "
+                      + "; ".join(f"{w} {s_} of {c_} tensors bit for bit, worst err/limit "
+                                  f"{w_[0]:.3f} ({w_[1]})" for w, (w_, s_, c_) in hold.items())
+                      + f" (limit {SPREAD:g} x the plain step's own spread, run again and on "
+                        f"images nudged by {NUDGE:g}, + {tols['grad']:g} x max|.|)")
+                if dtype == "float32":
+                    # where the remat step's peak now is
+                    row["windows"] = _remat_windows(base, images)
+                    top = sorted(row["windows"], key=lambda w: -w[1])[:4]
+                    print(f"[remat] {tag}: the remat step's peak memory by window of its "
+                          f"backward (a region's recompute to the next one's; G phase, then "
+                          f"D): " + ", ".join(f"{n} {b / 2 ** 30:.2f} GiB" for n, b in top)
+                          + f" of {len(row['windows'])} windows")
+                row.update(losses_bit_for_bit=same_losses, losses_worst=worst,
+                           **{f"{w}_bit_for_bit": v[1] / v[2] for w, v in hold.items()},
+                           **{f"{w}_worst": v[0][0] for w, v in hold.items()})
+                del again, nud
+            rows[tag] = row
+            del plain, rem
+            gc.collect()
+    finally:
+        torch.use_deterministic_algorithms(False)
+    del base
+    gc.collect()
+    torch.cuda.empty_cache()
+    check(not bad, f"remat steps differ from the plain steps: {bad[:8]}")
+    fp32 = rows[f"float32 batch {N_BATCH}"]
+    check(fp32["remat_peak_gib"] < fp32["peak_gib"],
+          f"fp32 batch {N_BATCH}: remat peaks at {fp32['remat_peak_gib']:.2f} GiB, not below "
+          f"{fp32['peak_gib']:.2f}")
+    return paths, rows
+
+
+def _variant_cfg(variant, size=None, tiny=False):
+    """The Config of ``variant``: ModelConfig() widths at 256x256 (conv4
+    with VARIANT_FULL's last encoder width), or its CPU test's size and
+    widths (VARIANT_CPU) with ``tiny``."""
+    import dataclasses
+    from facevae_tpu_torch.config import Config, ModelConfig, tiny_config
+    if tiny:
+        size, kw, _ = VARIANT_CPU[variant]
+        cfg = tiny_config(image_size=size)
+        return dataclasses.replace(cfg, model=dataclasses.replace(
+            cfg.model, efe_variant=variant, **kw))
+    return Config(model=ModelConfig(efe_variant=variant, **VARIANT_FULL.get(variant, {})))
+
+
+def _variant_parity(variant):
+    """``variant``'s EFE at its CPU test's size: the same seeded weights and
+    inputs on the card and on the CPU, the eval form and the training form
+    (BatchNorm on batch statistics): (the largest err / (tol x max|cpu|)
+    over the outputs, where)."""
+    import copy
+    import numpy as np
+    import torch
+    from facevae_tpu_torch.models import build_models
+    cfg = _variant_cfg(variant, tiny=True)
+    size, _, n = VARIANT_CPU[variant]
+    cpu = build_models(cfg.model, "cpu", names=("efe",))["efe"]
+    card = copy.deepcopy(cpu).cuda()
+    rs = np.random.RandomState(13)
+    x, x_a = (torch.from_numpy(rs.rand(n, size, size, 3).astype(np.float32)) for _ in range(2))
+    kp = torch.from_numpy(rs.uniform(-0.6, 0.6, (n, cfg.model.num_kp, 3)).astype(np.float32))
+    worst = (0.0, "")
+    with torch.no_grad():
+        for train in (False, True):
+            outs = [net.train(train)(*(t.to(dev) for t in (x, x_a, kp)))
+                    for net, dev in ((cpu, "cpu"), (card, "cuda"))]
+            leaves = [[o for o in _flat_outputs(out)] for out in outs]
+            check(len(leaves[0]) == len(leaves[1]) > 0, f"{variant}: outputs differ in number")
+            for i, (a, b) in enumerate(zip(*leaves)):
+                tol = VARIANT_TOL["train" if train else "eval"]
+                if i == 0 and variant == "conv6":
+                    tol = max(tol, CONV6_KP_TOL)
+                scale = float(a.abs().max())
+                err = float((b.cpu() - a).abs().max())
+                check(err <= tol * scale, f"{variant} {'train' if train else 'eval'} output {i}: "
+                                          f"card vs CPU {err:.3e} > {tol:g} x {scale:.3e}")
+                worst = max(worst, (err / (tol * scale) if scale else 0.0,
+                                    f"{'train' if train else 'eval'} output {i}, limit {tol:g}"))
+    return worst
+
+
+def _flat_outputs(out):
+    if isinstance(out, (tuple, list)):
+        return [o for x in out for o in _flat_outputs(x)]
+    return [] if out is None else [out]
+
+
+def phase_variants(card):
+    """Every EFE variant (EFE_VARIANTS) at 256x256 with ModelConfig()
+    widths (conv4: VARIANT_FULL): the seeded G nets behind
+    InferencePipeline.drive_batch on a batch of 8 (one warm-up, one timed;
+    the multi-grid and single-grid forward kernels once each, plain
+    versions never; outputs finite); each variant's EFE on the card against
+    the CPU at its CPU test's size (_variant_parity); then one fp32 remat
+    training step of "linear" at batch 8 (losses and both Adam steps
+    finite, the step's launches), the variant the JAX step trains besides
+    conv5."""
+    import math
+    import numpy as np
+    import torch
+    from facevae_tpu_torch.models import EFE_VARIANTS, build_models
+    from facevae_tpu_torch.ops import fast_warp
+    from facevae_tpu_torch.train import create_train_state, train_step
+    from facevae_tpu_torch.train.inference import InferencePipeline
+    device = torch.device("cuda")
+    rs = np.random.RandomState(21)
+    src = torch.from_numpy(rs.rand(1, 256, 256, 3).astype(np.float32)).to(device)
+    drv = torch.from_numpy(rs.rand(N_BATCH, 256, 256, 3).astype(np.float32)).to(device)
+    total, rows = {}, {}
+    for variant in EFE_VARIANTS:
+        cfg = _variant_cfg(variant)
+        pipe = InferencePipeline(cfg, build_models(cfg.model, device))
+        enc = pipe.encode_source(src)
+        pipe.drive_batch(*enc, drv)
+        res = {}
+
+        def drive():
+            res["out"] = pipe.drive_batch(*enc, drv)
+        fast_warp.reset_launch_counts()
+        _, ms = _timed(drive, 1)
+        counts = dict(fast_warp.launches)
+        out = res.pop("out")
+        want = {**dict.fromkeys(counts, 0), "warp_fwd": 1, "grid_fwd": 1}
+        check(counts == want, f"{variant}: drive batch launches {counts}, want {want}")
+        check(tuple(out.shape) == tuple(drv.shape) and bool(torch.isfinite(out).all()),
+              f"{variant}: drive batch output {tuple(out.shape)}, finite "
+              f"{bool(torch.isfinite(out).all())}")
+        for k, v in counts.items():
+            total[k] = total.get(k, 0) + v
+        efe_params = sum(p.numel() for p in pipe.models["efe"].parameters())
+        del pipe, enc, out
+        gc.collect()
+        torch.cuda.empty_cache()
+        worst = _variant_parity(variant)
+        rows[variant] = {"drive_batch_ms": ms, "efe_params": efe_params, "parity_worst": worst[0]}
+        print(f"[variants] {card}: {variant} at 256x256 ({efe_params} EFE parameters): drive "
+              f"batch of {N_BATCH} {ms:.1f} ms ({N_BATCH * 1e3 / ms:.2f} frames/s), launches "
+              f"{ {k: v for k, v in counts.items() if v} }; its EFE at the CPU test's size "
+              f"({VARIANT_CPU[variant][0]}x{VARIANT_CPU[variant][0]}), card vs CPU, eval and "
+              f"training forms: worst err/limit {worst[0]:.3f} ({worst[1]})")
+    cfg = _variant_cfg("linear")
+    check(cfg.model.remat, "the linear step's config does not rematerialize")
+    state = create_train_state(cfg, device)
+    g = torch.Generator(device=device).manual_seed(4)
+    batch = tuple(torch.rand(N_BATCH, 256, 256, 3, generator=g, device=device) for _ in range(4))
+    res = {}
+
+    def step():
+        res["out"] = train_step(state, batch, generator=g)
+    fast_warp.reset_launch_counts()
+    torch.cuda.reset_peak_memory_stats()
+    _, ms = _timed(step, 1)
+    counts = dict(fast_warp.launches)
+    out = res.pop("out")
+    losses = {k: float(v) for k, v in {**out["losses_g"], **out["losses_d"]}.items()}
+    adam = [v for opt in (state.g_opt, state.d_opt) for st in opt.state.values()
+            for v in st.values()]
+    steps = {float(st["step"]) for opt in (state.g_opt, state.d_opt) for st in opt.state.values()}
+    check(all(math.isfinite(v) for v in losses.values()), f"linear step losses {losses}")
+    check(all(bool(torch.isfinite(v).all()) for v in adam) and steps == {1.0},
+          f"linear step: Adam state finite {all(bool(torch.isfinite(v).all()) for v in adam)}, "
+          f"steps {steps}")
+    check(losses["C"] == 0.0, f"linear has no contrastive branch (quirk q2): C = {losses['C']}")
+    want = _want(counts, "float32", 1)
+    check(counts == want, f"linear step launches {counts}, want {want}")
+    for k, v in counts.items():
+        total[k] = total.get(k, 0) + v
+    rows["linear_step"] = {"ms": ms, "peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
+                           "losses": losses}
+    print(f"[variants] {card}: linear, ModelConfig() fp32 remat, one training step at batch "
+          f"{N_BATCH}: {ms:.1f} ms (the first: cuDNN's choices included), peak "
+          f"{rows['linear_step']['peak_gib']:.2f} GiB, losses "
+          f"{json.dumps({k: round(v, 5) for k, v in losses.items()})}, both Adam states finite "
+          f"at step 1; launches {counts}")
+    del state, out, adam
+    gc.collect()
+    torch.cuda.empty_cache()
+    return total, rows
 
 
 def _probe_row(name, out, ref, r, plain_ms, site):
@@ -2276,6 +2683,8 @@ def main(argv=None) -> int:
                          ("train_bf16", lambda: _train(card, "bfloat16")),
                          ("train_loop", lambda: phase_train_loop(card)),
                          ("dp", lambda: phase_dp(card)), ("scan", lambda: phase_scan(card)),
+                         ("remat", lambda: phase_remat(card)),
+                         ("variants", lambda: phase_variants(card)),
                          ("probes", phase_probes)):
             # a train state lives in reference cycles, which only the
             # collector frees: collect them, so that a phase's peak memory
@@ -2301,6 +2710,12 @@ def main(argv=None) -> int:
                 scan_paths, scan_rates = out
                 det_paths["scan_tiny_det"] = scan_paths.pop("scan_tiny_det")
                 paths.update(scan_paths)           # the graph path: captured x replays
+            elif name == "remat":
+                # deterministic steps: the dx kernels' variants launch there
+                paths["remat"], remat_rows = out
+                det_paths["remat"] = paths["remat"]
+            elif name == "variants":
+                paths["variants"], variant_rows = out
             elif name == "probes":
                 probe_rows, probe_counts = out
     except PhaseError as e:
@@ -2347,6 +2762,8 @@ def main(argv=None) -> int:
     print(f"[train_loop] {json.dumps(loop_rates)}")
     print(f"[dp] {json.dumps(dp_rates)}")
     print(f"[scan] {json.dumps(scan_rates)}")
+    print(f"[remat] {json.dumps(remat_rows)}")
+    print(f"[variants] {json.dumps(variant_rows)}")
     print(f"[done] {time.perf_counter() - t_all:.1f} s; phases {json.dumps(phase_s)}")
     print(smi())
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -12,11 +12,12 @@ Layer map:
   ops/       geometry, heatmaps, resampling, motion, normalization, TPS,
              the warp op with its kernels' wrappers and plain versions
   nn/        Conv/Dense/BatchNorm/InstanceNorm (eval and training forms),
-             CNA conv blocks
-  models/    AFE, CKD, HPE_EDE, EFE (conv5), MFE, Generator, Discriminator,
-             the Hopenet teacher, build_models
+             CNA conv blocks, the equalized-learning-rate layers
+  models/    AFE, CKD, HPE_EDE, the eight EFE variants with their VAEs, MFE,
+             Generator, Discriminator, the Hopenet teacher, build_models
   losses/    perceptual (VGG19 / VGG-Face), GAN, keypoint, VAE, contrastive
   train/     InferencePipeline, the objective, TrainState, train_step
+  remat.py   rematerialization of the objective's nets (ModelConfig.remat)
   convert.py JAX variables / train states (numpy) -> the port's modules
   serve.py   the batched HTTP server (``python -m facevae_tpu_torch.serve``)
   bench.py   training throughput (``python -m facevae_tpu_torch.bench``)

@@ -56,8 +56,8 @@ class ModelConfig:
     # compute dtype of the conv stacks; params and BN statistics stay fp32.
     # The port's step runs "float32" and "bfloat16" (train/objective.py).
     compute_dtype: str = "float32"
-    # rematerialization of the big nets in the JAX step; the port does not
-    # honour it yet (PERF.md gives its peak memory without it)
+    # rematerialization of the big nets in the training step (the port's
+    # train/objective.py and remat.py)
     remat: bool = True
 
     @property

@@ -7,10 +7,15 @@ on dict order (jit round trips alphabetize keys):
 
   params/<path>/kernel  HWIO / DHWIO / (in,out) -> <path>.weight OIHW / OIDHW / (out,in)
   params/<path>/bias                            -> <path>.bias
+  params/<path>/weight  (the ELR layers, torch's layouts already)
+                                                -> <path>.weight, as it is
   params/<path>/scale   (BatchNorm, InstanceNorm)-> <path>.weight
   batch_stats/<path>/mean, var                  -> <path>.running_mean, .running_var
   spectral/<path>/u                             -> <path>.weight_u
   spectral/<path>/v     (K..., I) flattening     -> <path>.weight_v in (I, K...) order
+
+The way back needs to know which weights are ELR weights: weight_as_is(net)
+lists them (nn/elr.py marks its classes).
 
 It is strict: a leaf with no counterpart, a parameter with no leaf, or a shape
 mismatch raises ValueError.
@@ -37,7 +42,7 @@ KeyError for a key with no leaf, as the JAX package does).
 from __future__ import annotations
 
 import re
-from typing import Any, Dict, Iterator, Mapping, Tuple
+from typing import Any, Collection, Dict, FrozenSet, Iterator, Mapping, Tuple
 
 import numpy as np
 import torch
@@ -105,7 +110,8 @@ def state_dict_from_jax(variables: Mapping[str, Any]) -> Dict[str, np.ndarray]:
             raise ValueError(f"two JAX leaves map to {key}")
         out[key] = np.ascontiguousarray(value)
 
-    leaf_names = {"params": {"kernel": "weight", "bias": "bias", "scale": "weight"},
+    leaf_names = {"params": {"kernel": "weight", "bias": "bias", "scale": "weight",
+                             "weight": "weight"},
                   "batch_stats": {"mean": "running_mean", "var": "running_var"},
                   "spectral": {"u": "weight_u", "v": "weight_v"}}
     for col in ("params", "batch_stats", "spectral"):
@@ -127,10 +133,19 @@ def state_dict_from_jax(variables: Mapping[str, Any]) -> Dict[str, np.ndarray]:
     return out
 
 
-def jax_tree_from_state_dict(sd: Mapping[str, Any]) -> Dict[str, Any]:
+def weight_as_is(net: torch.nn.Module) -> FrozenSet[str]:
+    """The state_dict keys of ``net``'s ELR weights, which the JAX package
+    stores as "weight" leaves in torch's layout."""
+    return frozenset(f"{name}.weight" for name, m in net.named_modules()
+                     if getattr(m, "weight_as_is", False))
+
+
+def jax_tree_from_state_dict(sd: Mapping[str, Any],
+                             as_is: Collection[str] = ()) -> Dict[str, Any]:
     """The inverse of state_dict_from_jax: one net's {state_dict key: numpy
     array} -> its JAX variables {"params", "batch_stats", "spectral"} as
-    nested numpy (collections that would be empty left out)."""
+    nested numpy (collections that would be empty left out).  The keys in
+    ``as_is`` (weight_as_is) go to "weight" leaves unchanged."""
     out: Dict[str, Dict[str, Any]] = {}
     names = {"bias": ("params", "bias"), "running_mean": ("batch_stats", "mean"),
              "running_var": ("batch_stats", "var"), "weight_u": ("spectral", "u"),
@@ -138,7 +153,9 @@ def jax_tree_from_state_dict(sd: Mapping[str, Any]) -> Dict[str, Any]:
     for key in sorted(sd, key=natural_key):
         a = np.asarray(sd[key])
         *mod, leaf = key.split(".")
-        if leaf == "weight":
+        if key in as_is:
+            col, name = "params", "weight"
+        elif leaf == "weight":
             col, name = ("params", "kernel") if a.ndim >= 2 else ("params", "scale")
             a = _jax_kernel(a) if a.ndim >= 2 else a
         elif leaf in names:
@@ -276,12 +293,16 @@ def adam_state_dicts(opt: torch.optim.Adam, nets: Mapping[str, torch.nn.Module])
 
 
 def optax_adam_tree(count: int, mu: Mapping[str, Mapping[str, Any]],
-                    nu: Mapping[str, Mapping[str, Any]]) -> Dict[str, Any]:
+                    nu: Mapping[str, Mapping[str, Any]],
+                    as_is: Mapping[str, Collection[str]] = None) -> Dict[str, Any]:
     """adam_state_dicts' result (numpy leaves) in optax's ScaleByAdamState
-    layout: {"count": int32, "mu": {net: params tree}, "nu": ...}."""
+    layout: {"count": int32, "mu": {net: params tree}, "nu": ...};
+    ``as_is`` maps a net to its weight_as_is keys."""
+    def tree(sd, n):
+        return jax_tree_from_state_dict(sd, (as_is or {}).get(n, ())).get("params", {})
     return {"count": np.asarray(count, np.int32),
-            "mu": {n: jax_tree_from_state_dict(sd).get("params", {}) for n, sd in mu.items()},
-            "nu": {n: jax_tree_from_state_dict(sd).get("params", {}) for n, sd in nu.items()}}
+            "mu": {n: tree(sd, n) for n, sd in mu.items()},
+            "nu": {n: tree(sd, n) for n, sd in nu.items()}}
 
 
 def load_jax_train_state(nets: Mapping[str, torch.nn.Module], tree: Mapping[str, Any],

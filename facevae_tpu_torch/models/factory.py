@@ -12,6 +12,8 @@ from facevae_tpu_torch.models.afe import AFE
 from facevae_tpu_torch.models.ckd import CKD
 from facevae_tpu_torch.models.discriminator import Discriminator
 from facevae_tpu_torch.models.efe import EFEConv
+from facevae_tpu_torch.models.efe_conv6 import EFEConv6
+from facevae_tpu_torch.models.efe_linear import EFELinear, efe_lin_conv_defaults
 from facevae_tpu_torch.models.generator import Generator
 from facevae_tpu_torch.models.hpe_ede import HPE_EDE
 from facevae_tpu_torch.models.mfe import MFE
@@ -19,6 +21,25 @@ from facevae_tpu_torch.nn import init_parameters
 
 G_MODEL_NAMES = ("efe", "afe", "ckd", "hpe_ede", "mfe", "generator")
 D_MODEL_NAMES = ("discriminator",)
+EFE_VARIANTS = ("conv", "conv2", "conv3", "conv4", "conv5", "conv6", "linear", "lin_conv")
+
+
+def build_efe(cfg: ModelConfig, device) -> nn.Module:
+    """The EFE of ``cfg.efe_variant`` (unseeded)."""
+    if cfg.efe_variant == "conv6":
+        return EFEConv6(D=cfg.depth, K=cfg.num_kp, scale_factor=cfg.efe_scale_factor,
+                        use_vae=cfg.efe_use_vae, use_weight_norm=cfg.use_weight_norm,
+                        image_size=cfg.image_size, device=device)
+    if cfg.efe_variant in ("linear", "lin_conv"):
+        kw = efe_lin_conv_defaults() if cfg.efe_variant == "lin_conv" else {}
+        return EFELinear(K=cfg.num_kp, scale_factor=cfg.efe_scale_factor,
+                         use_weight_norm=cfg.use_weight_norm, image_size=cfg.image_size,
+                         device=device, **kw)
+    return EFEConv(variant=cfg.efe_variant, down_seq=tuple(cfg.efe_down_seq),
+                   up_seq=tuple(cfg.efe_up_seq), D=cfg.depth, K=cfg.num_kp,
+                   n_res=cfg.efe_n_res, scale_factor=cfg.efe_scale_factor,
+                   use_vae=cfg.efe_use_vae, use_weight_norm=cfg.use_weight_norm,
+                   image_size=cfg.image_size, device=device)
 
 
 def build_models(cfg: ModelConfig, device=None,
@@ -28,19 +49,20 @@ def build_models(cfg: ModelConfig, device=None,
     initialized from ``generator`` (default: seed 0 on that device) in
     G_MODEL_NAMES + D_MODEL_NAMES order, and put them in eval mode.
 
-    Raises on EFE variants other than conv5: they are not ported yet
-    (ROADMAP Queue 1)."""
+    The EFE is ``cfg.efe_variant``'s, one of EFE_VARIANTS, built with the
+    JAX factory's arguments (models/VARIANTS.md of the JAX package); an
+    unknown name, and a variant that does not build at the config's
+    widths and image size, raise ValueError."""
     device = torch.device("cuda" if device is None else device)
     unknown = [n for n in names if n not in G_MODEL_NAMES + D_MODEL_NAMES]
     if unknown:
         raise ValueError(f"unknown nets {unknown}; the port builds "
                          f"{G_MODEL_NAMES + D_MODEL_NAMES}")
+    if cfg.efe_variant not in EFE_VARIANTS:
+        raise ValueError(f"unsupported EFE variant {cfg.efe_variant!r} "
+                         f"(one of {'/'.join(EFE_VARIANTS)})")
     ctor = {
-        "efe": lambda: EFEConv(
-            variant=cfg.efe_variant, down_seq=tuple(cfg.efe_down_seq),
-            up_seq=tuple(cfg.efe_up_seq), D=cfg.depth, K=cfg.num_kp,
-            n_res=cfg.efe_n_res, scale_factor=cfg.efe_scale_factor,
-            use_vae=cfg.efe_use_vae, use_weight_norm=cfg.use_weight_norm, device=device),
+        "efe": lambda: build_efe(cfg, device),
         "afe": lambda: AFE(
             down_seq=tuple(cfg.afe_down_seq), n_res=cfg.afe_n_res, C=cfg.app_channels,
             D=cfg.depth, use_weight_norm=cfg.use_weight_norm, device=device),

@@ -1,6 +1,7 @@
 """Neural building blocks (port of facevae_tpu/nn): layers.py (Conv, Dense,
-BatchNorm, InstanceNorm; eval and training forms), blocks.py (CNA conv blocks), init.py
-(seeded init)."""
+BatchNorm, InstanceNorm; eval and training forms), blocks.py (CNA conv blocks), elr.py
+(the equalized-learning-rate layers of the dormant EFE variants), init.py (seeded
+init)."""
 from facevae_tpu_torch.nn.init import init_parameters
 from facevae_tpu_torch.nn.layers import BatchNorm, Conv, Dense, InstanceNorm
 from facevae_tpu_torch.nn.blocks import (
@@ -11,4 +12,10 @@ from facevae_tpu_torch.nn.blocks import (
     ResBlock2D, ResBlock3D,
     ResBottleneck,
     named_sequence,
+)
+from facevae_tpu_torch.nn.elr import (
+    Conv2dELR,
+    ConvTranspose1dELR, ConvTranspose2dELR, ConvTranspose3dELR,
+    LinearELR,
+    UpSampleBlock3d,
 )

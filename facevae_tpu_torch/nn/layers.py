@@ -16,7 +16,9 @@ Training forms follow the JAX layers: BatchNorm normalizes by the biased
 batch variance and updates its running statistics in place; a spectral-norm
 Conv runs one power iteration per training forward.  The buffers a forward
 updates in place stand in for the JAX package's VarBank: calls see each
-other's updates in call order.  BatchNorm is single-device (no SyncBN yet).
+other's updates in call order.  Under remat (facevae_tpu_torch/remat.py) a
+recompute advances neither: it takes the u, v and the batch statistics of
+its forward.  BatchNorm synchronizes over ``group`` when it is set.
 """
 from __future__ import annotations
 
@@ -29,6 +31,7 @@ import torch.distributed.nn.functional as dist_fn
 import torch.nn as nn
 import torch.nn.functional as F
 
+from facevae_tpu_torch import remat
 from facevae_tpu_torch.nn.init import unit_normal_, uniform_fan_in_
 
 _CONV = {2: F.conv2d, 3: F.conv3d}
@@ -85,17 +88,25 @@ class Conv(nn.Module):
                 self.weight_v.copy_(F.normalize(w.t() @ self.weight_u, dim=0))
                 self.weight_u.copy_(F.normalize(w @ self.weight_v, dim=0))
 
+    @torch.no_grad()
+    def _power_iteration(self, w_mat):
+        """One power iteration of the stored u, v in place; returns clones
+        of them: the next training call updates u, v in place, while the
+        backward of this call still needs them (their version counters)."""
+        self.weight_v.copy_(_l2norm(w_mat.t() @ self.weight_u))
+        self.weight_u.copy_(_l2norm(w_mat @ self.weight_v))
+        return self.weight_u.clone(), self.weight_v.clone()
+
     def forward(self, x):
         w = self.weight
         if self.spectral_norm:
             w_mat = w.flatten(1)
             if self.training:
-                with torch.no_grad():
-                    self.weight_v.copy_(_l2norm(w_mat.t() @ self.weight_u))
-                    self.weight_u.copy_(_l2norm(w_mat @ self.weight_v))
-            # clones: the next training call updates u, v in place, while the
-            # backward of this call still needs them (their version counters)
-            sigma = torch.dot(self.weight_u.clone(), w_mat @ self.weight_v.clone())
+                # a remat recompute takes the u, v of its forward, unmoved
+                u, v = remat.once(lambda: self._power_iteration(w_mat))
+            else:
+                u, v = self.weight_u.clone(), self.weight_v.clone()
+            sigma = torch.dot(u, w_mat @ v)
             w = w / sigma
         return _CONV[self.dim](x, w.to(x.dtype), _cast(self.bias, x), self.stride,
                                self.padding)
@@ -161,6 +172,16 @@ class BatchNorm(nn.Module):
         self.running_mean.zero_()
         self.running_var.fill_(1.0)
 
+    @torch.no_grad()
+    def _update_running(self, mean, var, n):
+        """The running statistics' update from one batch's; returns the
+        batch's (mean, var)."""
+        m = self.momentum
+        self.running_mean.copy_((1 - m) * self.running_mean + m * mean)
+        self.running_var.copy_((1 - m) * self.running_var
+                               + m * (var * (n / max(n - 1.0, 1.0))))
+        return mean, var
+
     def forward(self, x):
         if self.training:
             dims = (0,) + tuple(range(2, x.dim()))
@@ -173,12 +194,10 @@ class BatchNorm(nn.Module):
                 stats = dist_fn.all_reduce(torch.stack([mean, mean2]), group=self.group)
                 mean, mean2 = (stats / world).unbind(0)
             var = mean2 - mean * mean
-            with torch.no_grad():
-                n = float(x.numel() // x.shape[1] * world)
-                m = self.momentum
-                self.running_mean.copy_((1 - m) * self.running_mean + m * mean)
-                self.running_var.copy_((1 - m) * self.running_var
-                                       + m * (var * (n / max(n - 1.0, 1.0))))
+            n = float(x.numel() // x.shape[1] * world)
+            # a remat recompute updates nothing and uses its forward's values
+            kept = remat.once(lambda: self._update_running(mean, var, n))
+            mean, var = remat.pin(mean, kept[0]), remat.pin(var, kept[1])
         else:
             mean, var = self.running_mean, self.running_var
         a = torch.rsqrt(var + self.eps)

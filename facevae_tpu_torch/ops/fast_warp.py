@@ -48,6 +48,10 @@ matrix unit and are not ported.  The multi-grid forward at K1 > 1 runs one
 block per (n, tile of output voxels) that writes its k-major output tile
 through shared memory (csrc/warp_fwd.cu).
 
+Under remat (facevae_tpu_torch/remat.py) a forward's output is kept for
+the recompute, as the JAX package saves its "warp_out" outputs: a remat
+step launches each forward kernel as often as a plain step.
+
 Each path counts its launches in ``launches`` (plain integers), so a run can
 show which path the served or trained graph took.  The two forward
 wrappers also keep the grid their last launch used, as the launch code
@@ -59,6 +63,8 @@ import ctypes
 import math
 
 import torch
+
+from facevae_tpu_torch import remat
 
 launches = {"warp_fwd": 0, "warp_fwd_plain": 0,
             "warp_bwd_dgrid": 0, "warp_bwd_dgrid_plain": 0,
@@ -542,7 +548,8 @@ class _WarpMultiPixel(torch.autograd.Function):
 
 def _forward(x, cgx, cgy, cgz, spatial):
     fwd = warp_multi_pixel_cuda if _on_cuda("warp_multi_pixel", x) else warp_multi_pixel_plain
-    return fwd(x, cgx, cgy, cgz, spatial)
+    # kept for a remat recompute, not launched again (remat.py)
+    return remat.once(lambda: fwd(x, cgx, cgy, cgz, spatial))
 
 
 def warp_multi_pixel(x, cgx, cgy, cgz, spatial):
@@ -575,7 +582,7 @@ class _GridSample3d(torch.autograd.Function):
 
 def _grid_forward(x, grid, gps):
     fwd = grid_sample_3d_cuda if _on_cuda("grid_sample_3d_fast", x) else grid_sample_3d_plain
-    return fwd(x, grid, gps)
+    return remat.once(lambda: fwd(x, grid, gps))
 
 
 def grid_sample_3d_fast(x, grid, grids_per_source: int = 1):

@@ -35,7 +35,7 @@ import torch
 
 from facevae_tpu_torch.convert import (TRAIN_STATE_KEYS, adam_state_dicts,
                                        jax_tree_from_state_dict, load_jax_train_state,
-                                       optax_adam_tree)
+                                       optax_adam_tree, weight_as_is)
 from facevae_tpu_torch.models import D_MODEL_NAMES, G_MODEL_NAMES
 from facevae_tpu_torch.parallel.mesh import is_master
 from facevae_tpu_torch.train import msgpack_io
@@ -85,9 +85,11 @@ def prune_checkpoints(ckp_dir: str, keep: int) -> List[str]:
 
 def _tensors(state: TrainState) -> Dict[str, Any]:
     """What a checkpoint holds, as the state's own tensors (no copy):
-    {"nets": {net: state_dict}, "g_opt" / "d_opt": adam_state_dicts(...),
+    {"nets": {net: state_dict}, "as_is": {net: its ELR weights' keys},
+    "g_opt" / "d_opt": adam_state_dicts(...),
     "epoch", "step"}."""
     return {"nets": {n: net.state_dict() for n, net in state.nets.items()},
+            "as_is": {n: weight_as_is(net) for n, net in state.nets.items()},
             "g_opt": adam_state_dicts(state.g_opt, state.nets),
             "d_opt": adam_state_dicts(state.d_opt, state.nets),
             "epoch": int(state.epoch), "step": int(state.step)}
@@ -104,7 +106,8 @@ def _map(fn, tree):
 def _jax_tree(tensors: Dict[str, Any]) -> Dict[str, Any]:
     """_tensors' content on the host, as the JAX TrainState's state dict."""
     host = _map(lambda t: t.detach().cpu().numpy(), tensors)
-    var = {n: jax_tree_from_state_dict(sd) for n, sd in host["nets"].items()}
+    as_is = tensors["as_is"]
+    var = {n: jax_tree_from_state_dict(sd, as_is[n]) for n, sd in host["nets"].items()}
     return {
         "g_params": {n: var[n]["params"] for n in G_MODEL_NAMES},
         "d_params": {n: var[n]["params"] for n in D_MODEL_NAMES},
@@ -113,8 +116,8 @@ def _jax_tree(tensors: Dict[str, Any]) -> Dict[str, Any]:
         "batch_stats": {n: v["batch_stats"] for n, v in var.items()
                         if "batch_stats" in v and n not in TEACHERS},
         "spectral": {n: v["spectral"] for n, v in var.items() if "spectral" in v},
-        "g_opt": {"0": optax_adam_tree(*host["g_opt"]), "1": {}},
-        "d_opt": {"0": optax_adam_tree(*host["d_opt"]), "1": {}},
+        "g_opt": {"0": optax_adam_tree(*host["g_opt"], as_is=as_is), "1": {}},
+        "d_opt": {"0": optax_adam_tree(*host["d_opt"], as_is=as_is), "1": {}},
         "epoch": np.asarray(host["epoch"], np.int32),
         "step": np.asarray(host["step"], np.int32)}
 

@@ -27,8 +27,9 @@ the run.  --steps_per_call K > 1 runs K steps per call of the multi-step
 dispatcher (train/scan.py: a CUDA graph of the step replayed K times);
 it needs --device_cache true and the on-device augmentation.
 
-Not ported (ROADMAP Queue 1 item 6): --remat true (the default) runs
-without rematerialization and says so once.
+--remat true (the default, as the root CLI's) rematerializes the nets the
+JAX step wraps in jax.checkpoint (train/objective.py, remat.py): less
+memory a step for about a third more of their forward work.
 """
 from __future__ import annotations
 
@@ -69,7 +70,7 @@ def parse_args(argv=None):
                         help="tiny 64px config")
     parser.add_argument("--bf16", type=str2bool, default=False)
     parser.add_argument("--remat", type=str2bool, default=True,
-                        help="(not ported: the step runs without rematerialization)")
+                        help="recompute the big nets' activations in the backward pass")
     parser.add_argument("--cpu_aug", type=str2bool, default=False,
                         help="use the CPU augmentation path (cv2 / PIL)")
     parser.add_argument("--seed", type=int, default=1)
@@ -204,10 +205,6 @@ def _train(args, cfg, device):
     if device.type == "cuda":
         device = torch.device("cuda", torch.cuda.current_device())
     say = parallel.master_only_print
-    if cfg.model.remat:
-        say("--remat true: rematerialization is not ported (ROADMAP Queue 1 item 6); the "
-            "step runs without it (batch 8 at 256² fits: 32.61 GiB fp32, 17.18 GiB bf16 "
-            "peak on an H100, PERF.md §2)")
     if group is not None:
         say(f"data parallel: {world} rank(s) ({torch.distributed.get_backend(group)}), "
             f"{cfg.train.batch_size} frames a rank a step, {cfg.train.batch_size * world} "

@@ -18,6 +18,16 @@ view, driving with its augmented view, warped driving), MFE, Generator, the
 discriminator twice, then the contrastive head.  The frozen Hopenet runs in
 eval form without gradient.
 
+With ModelConfig.remat (the default, as in the JAX package) the nets the
+JAX objective wraps in jax.checkpoint are rematerialized at the same call
+boundaries (facevae_tpu_torch/remat.py): CKD, HPE_EDE, the three EFE
+calls, MFE, the Generator, the discriminator's calls of both phases and
+the perceptual loss; AFE, the frozen Hopenet and the contrastive head are
+not.  The warps' outputs are kept, not recomputed; a recompute advances no
+BatchNorm statistics or spectral u, v, and the driving EFE call's eps is
+drawn once, in the forward, from the step's generator.  A remat step
+computes the same values as a step without it.
+
 `nets` maps the JAX package's names to modules: efe, afe, ckd, hpe_ede, mfe,
 generator, discriminator, hopenet, perceptual, contrastive.  Images are
 [N,H,W,3] in [0,1], channel-last.
@@ -28,6 +38,7 @@ from typing import Dict, Optional, Tuple
 
 import torch
 
+from facevae_tpu_torch import remat
 from facevae_tpu_torch.config import Config
 from facevae_tpu_torch.losses import (
     deformation_prior_loss, equivariance_loss, feature_matching_loss, gan_loss_dis,
@@ -74,8 +85,9 @@ def generator_forward(nets, cfg: Config, s, d, s_a, d_a,
     s_c, d_c = s.to(cdt), d.to(cdt)
     s_a = s_a.to(cdt) if s_a is not None else None
     d_a = d_a.to(cdt) if d_a is not None else None
+    rm = cfg.model.remat
     fs = nets["afe"](s_c)
-    kp_c = nets["ckd"](s_c)
+    kp_c = remat.call(rm, nets["ckd"], s_c)
 
     tp = transform_params
     if tp is None:
@@ -86,7 +98,7 @@ def generator_forward(nets, cfg: Config, s, d, s_a, d_a,
     transformed_d = transform_frame(tp, d.float(), compute_dtype=cdt).float()
     cated = torch.cat([s_c, d_c, transformed_d.to(cdt)], dim=0)
 
-    yaw, pitch, roll, t, scale = nets["hpe_ede"](cated)
+    yaw, pitch, roll, t, scale = remat.call(rm, nets["hpe_ede"], cated)
     t_s, t_d, t_tran = _chunk3(t)
     scale_s, scale_d, scale_tran = _chunk3(scale)
     yaw_s, yaw_d, yaw_tran = _chunk3(yaw)
@@ -105,20 +117,20 @@ def generator_forward(nets, cfg: Config, s, d, s_a, d_a,
                                          t_tran, scale_tran)
 
     efe = nets["efe"]
-    kp_s, _, _, _, _ = efe(s_c, s_a, kp_s_old)
-    kp_d, x_c_d, x_a_c_d, (mu_d, logstd_d), (x_vae_d, _) = efe(
-        d_c, d_a, kp_d_old, train_vae=train_vae, eps=vae_eps, generator=generator)
-    transformed_kp = efe(transformed_d.to(cdt), None, transformed_kp_old)[0]
+    kp_s, _, _, _, _ = remat.call(rm, efe, s_c, s_a, kp_s_old)
+    kp_d, x_c_d, x_a_c_d, (mu_d, logstd_d), (x_vae_d, _) = remat.call(
+        rm, efe, d_c, d_a, kp_d_old, train_vae=train_vae, eps=vae_eps, generator=generator)
+    transformed_kp = remat.call(rm, efe, transformed_d.to(cdt), None, transformed_kp_old)[0]
 
     reverse_kp = warp_coordinates(tp, transformed_kp[:, :, :2])
-    deformation, occlusion, mask = nets["mfe"](fs, kp_s, kp_d, Rs, Rd)
-    generated_d = nets["generator"](fs, deformation, occlusion).float()
-    output_d, features_d = nets["discriminator"](d_c, kp_d)
-    output_gd, features_gd = nets["discriminator"](generated_d.to(cdt), kp_d)
+    deformation, occlusion, mask = remat.call(rm, nets["mfe"], fs, kp_s, kp_d, Rs, Rd)
+    generated_d = remat.call(rm, nets["generator"], fs, deformation, occlusion).float()
+    output_d, features_d = remat.call(rm, nets["discriminator"], d_c, kp_d)
+    output_gd, features_gd = remat.call(rm, nets["discriminator"], generated_d.to(cdt), kp_d)
 
     zero = torch.zeros((), dtype=torch.float32, device=s.device)
     losses = {
-        "P": w.perceptual * nets["perceptual"](generated_d.to(cdt), d_c),
+        "P": w.perceptual * remat.call(rm, nets["perceptual"], generated_d.to(cdt), d_c),
         "G": w.gan * gan_loss_gen(output_gd),
         "F": w.feature_matching * feature_matching_loss(features_gd, features_d),
         "E": w.equivariance * equivariance_loss(kp_d, reverse_kp),
@@ -146,8 +158,9 @@ def generator_forward(nets, cfg: Config, s, d, s_a, d_a,
 
 def discriminator_forward(nets, cfg: Config, d, generated_d, kp_d) -> Dict[str, torch.Tensor]:
     """The discriminator's hinge losses on real d and the detached fake."""
-    cdt = compute_dtype(cfg)
-    output_d, _ = nets["discriminator"](d.to(cdt), kp_d.detach())
-    output_gd, _ = nets["discriminator"](generated_d.detach().to(cdt), kp_d.detach())
+    cdt, rm = compute_dtype(cfg), cfg.model.remat
+    output_d, _ = remat.call(rm, nets["discriminator"], d.to(cdt), kp_d.detach())
+    output_gd, _ = remat.call(rm, nets["discriminator"], generated_d.detach().to(cdt),
+                              kp_d.detach())
     return {"G1": cfg.loss.gan * gan_loss_dis(output_gd, t_real=False),
             "G2": cfg.loss.gan * gan_loss_dis(output_d, t_real=True)}

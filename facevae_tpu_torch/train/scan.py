@@ -31,6 +31,10 @@ captures.  A capture or a replay that fails raises; nothing falls back to
 eager steps on the card.  On the CPU (where CUDA graphs do not exist)
 every step runs eagerly, the same function.
 
+A remat step (ModelConfig.remat) captures as a plain one does: its
+recomputes run inside the captured backward, and the warps' kept outputs
+live in the graph's pool.
+
 Python state is kept by the host: state.step advances once per step run,
 and the warp kernels' launch counts (ops/fast_warp.launches) count each
 replay's captured launches.

@@ -53,9 +53,25 @@ class TrainState:
 
 
 def contrastive_in_dim(cfg: Config) -> int:
-    """Flattened size of EFE's encoder map: (image / 64)^2 x channels."""
+    """The contrastive head's input width, the JAX state's formula
+    (facevae_tpu/train/state.py): conv5's flattened encoder map,
+    (image / 64)^2 x channels, whatever the EFE variant."""
     m = cfg.model
     return (m.image_size // 64) ** 2 * m.efe_down_seq[-1]
+
+
+def check_trainable(cfg: Config, efe: nn.Module) -> None:
+    """Refuse an EFE whose contrastive features x_c the head cannot take:
+    the JAX step fails on the head's parameter shapes there, so of the
+    variants at ModelConfig() widths only conv5 and linear (which has no
+    x_c) train."""
+    width = getattr(efe, "x_c_dim", None)
+    if width is not None and width != contrastive_in_dim(cfg):
+        raise ValueError(
+            f"EFE variant {cfg.model.efe_variant!r} gives contrastive features x_c of width "
+            f"{width}, while the contrastive head takes {contrastive_in_dim(cfg)} "
+            "((image_size / 64)^2 x efe_down_seq[-1], as the JAX state builds it): the JAX "
+            "step cannot train this configuration and neither does the port")
 
 
 def build_all_modules(cfg: Config, device) -> Dict[str, nn.Module]:
@@ -96,9 +112,12 @@ def create_train_state(cfg: Config, device=None,
     loaded into them when it is set.  The trainable nets and the head are
     put in training mode; Hopenet stays in eval form.  ``group`` (a
     torch.distributed process group) makes the state data-parallel: its
-    BatchNorm layers synchronize over it and train_step averages over it."""
+    BatchNorm layers synchronize over it and train_step averages over it.
+    An EFE variant the JAX step cannot train raises ValueError
+    (check_trainable)."""
     device = torch.device("cuda" if device is None else device)
     nets = nets if nets is not None else build_all_modules(cfg, device)
+    check_trainable(cfg, nets.get("efe"))
     if cfg.loss.pretrained_dir:
         load_pretrained(nets, cfg.loss.pretrained_dir)
     for m in nets.values():

@@ -22,6 +22,10 @@ all-reduces) on the CPU, in gloo processes, at tiny_config.
   (tests/test_train_step.py:test_dp_vs_1dev_multistep): losses within 1e-2
   of max(1, |ref|) at step 1 and 25x that at step 2, parameters within
   1e-3 x the step.  A group of one rank equals no group, bit for bit.
+- Remat: the ranks above run tiny_config(), which rematerializes (as the
+  JAX step's does); a second pair of ranks runs the first step without
+  remat, and both ranks' losses and snapshot after it (parameters,
+  buffers, gradients, Adam moments) are the same bits.
 - The sharded frame cache: sample_indices and iter_index_chunks equal the
   JAX cache's with make_mesh(2), index for index; each rank holds its
   identities' frames.
@@ -31,6 +35,8 @@ import nothing of the test tree, so no JAX); rank 1 also runs the
 one-process reference, rank 0 the one-rank group, while JAX compiles in
 the test's process.
 """
+import dataclasses
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -120,12 +126,20 @@ def env(tmp_path_factory):
     steps = [(_images(rs, WORLD, size), _tp(rs, WORLD)) for _ in range(2)]
     weights = str(tmp_path_factory.mktemp("dp") / "weights.pt")
     torch.save(_state_tree(variables), weights)
-    # the ranks (and rank 1's one-process run) work while JAX compiles here
+    # the ranks (and rank 1's one-process run) work while JAX compiles here;
+    # tiny_config() rematerializes, and a second pair of ranks runs the same
+    # steps without remat
     started = start(dp_check.rank_steps, WORLD, tiny_config(), weights, steps, "cpu", True, True,
                     device="cpu", threads=1)
+    plain_cfg = tiny_config()
+    plain_cfg = dataclasses.replace(plain_cfg,
+                                    model=dataclasses.replace(plain_cfg.model, remat=False))
+    started_plain = start(dp_check.rank_steps, WORLD, plain_cfg, weights, steps[:1], "cpu",
+                          False, True, device="cpu", threads=1)
     jax_out = _jax_side(cfg, variables, *steps[0])
     ranks = started.join()
-    return dict(cfg=cfg, steps=steps, ranks=ranks, one=ranks[1]["whole"], jax=jax_out)
+    return dict(cfg=cfg, steps=steps, ranks=ranks, one=ranks[1]["whole"], jax=jax_out,
+                plain=started_plain.join())
 
 
 def test_dp_losses_and_state_against_the_jax_mesh_step(env):
@@ -185,6 +199,16 @@ def test_dp_two_steps_against_one_process_on_the_whole_batch(env):
                    if k.rsplit(".", 1)[-1] not in ("running_mean", "running_var",
                                                    "weight_u", "weight_v"))
         assert pdev < 1e-3 * (i + 1), (i, pdev)
+
+
+def test_dp_remat_steps_are_the_plain_steps(env):
+    """2 gloo ranks, a step with remat against one without it: bit for bit
+    on each rank (BatchNorm's all-reduce runs again in the recompute, on
+    both ranks alike)."""
+    for rank, (rm, plain) in enumerate(zip(env["ranks"], env["plain"])):
+        assert rm["losses"][:1] == plain["losses"], rank
+        diff = dp_check.bit_differences(rm["states"][:1], plain["states"])
+        assert not diff, (rank, diff[:8])
 
 
 @pytest.fixture(scope="module")

@@ -20,7 +20,7 @@ from facevae_tpu.config import tiny_config
 from facevae_tpu.models import build_models as build_jax_models
 from facevae_tpu.ops.geometry import make_coordinate_grid_3d, pose_rotation
 from facevae_tpu_torch.convert import load_jax_variables, natural_key, state_dict_from_jax
-from facevae_tpu_torch.models import build_models
+from facevae_tpu_torch.models import EFE_VARIANTS, build_models
 from torch_parity import assert_close, golden, one_torch_thread  # noqa: F401
 
 pytestmark = pytest.mark.fast
@@ -118,13 +118,25 @@ def test_bridge_maps_by_name(env):
 
 
 def test_build_models_refuses_what_is_not_ported(env):
-    """The dormant EFE variants are not ported; unknown names are refused;
-    the discriminator, the training forms and VAE sampling are (with eps = 0
-    the sampling EFE gives the deterministic keypoints, and returns mu and
-    logstd, [N, h*w*Cz])."""
-    with pytest.raises(NotImplementedError):
-        build_models(dataclasses.replace(env["cfg"].model, efe_variant="conv4"), "cpu",
-                     names=("efe",))
+    """build_models builds every EFE variant (each at a size where the JAX
+    module builds: conv, conv2, conv5 at 128x128, conv4 there with a last
+    encoder width of 256, conv3, conv6, linear and lin_conv at 256x256) and
+    refuses an unknown variant and unknown nets; the discriminator, the
+    training forms and VAE sampling are ported (with eps = 0 the sampling
+    EFE gives the deterministic keypoints, and returns mu and logstd,
+    [N, h*w*Cz])."""
+    m = env["cfg"].model
+    sizes = {"conv": (128, {}), "conv2": (128, {}), "conv5": (128, {}),
+             "conv4": (128, {"efe_down_seq": m.efe_down_seq[:-1] + (256,)}),
+             "conv3": (256, {}), "conv6": (256, {"depth": 16}), "linear": (256, {}),
+             "lin_conv": (256, {})}
+    assert tuple(sorted(sizes)) == tuple(sorted(EFE_VARIANTS))
+    for variant, (size, kw) in sizes.items():
+        cfg = dataclasses.replace(m, efe_variant=variant, image_size=size, **kw)
+        efe = build_models(cfg, "cpu", names=("efe",))["efe"]
+        assert sum(p.numel() for p in efe.parameters()) > 0, variant
+    with pytest.raises(ValueError, match="unsupported EFE variant"):
+        build_models(dataclasses.replace(m, efe_variant="conv7"), "cpu", names=("efe",))
     with pytest.raises(ValueError, match="unknown"):
         build_models(env["cfg"].model, "cpu", names=("hopenet",))
     efe = build_models(env["cfg"].model, "cpu", names=("efe",))["efe"]

@@ -21,6 +21,7 @@ CLI's new modes, on the CPU at tiny_config.
   ops/geometry.py and ops/motion.py gives inv's bits; numerics.constant
   gives torch.tensor's values, made once per (values, dtype, device).
 """
+import dataclasses
 import os
 
 import numpy as np
@@ -55,6 +56,8 @@ def _state_bits(state):
 
 def test_scan_equals_the_loop_steps_bit_for_bit():
     cfg = tiny_config()
+    # the dispatcher against the loop, not remat (tests/test_torch_remat.py)
+    cfg = dataclasses.replace(cfg, model=dataclasses.replace(cfg.model, remat=False))
     rs = np.random.RandomState(0)
     size = cfg.model.image_size
     frames = torch.from_numpy(rs.randint(0, 256, (6, size, size, 3)).astype(np.uint8))

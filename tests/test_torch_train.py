@@ -28,7 +28,9 @@ first answer within 10x that spread (torch_parity.assert_held), plus
   noise the two packages step by +-lr in directions that differ (measured:
   0.6% on the feature-matching loss F at step 3).
 A wrong term or layout misses by orders of magnitude more on the
-well-conditioned outputs.
+well-conditioned outputs.  tiny_config() rematerializes in both packages,
+so these hold the port's remat step to the JAX package's remat step
+(tests/test_torch_remat.py holds it to the plain step bit for bit).
 """
 import jax
 import jax.numpy as jnp
@@ -96,6 +98,7 @@ def env():
 
 def _port_state(env):
     cfg = tiny_config()
+    assert cfg.model.remat == env["cfg"].model.remat is True    # both steps rematerialize
     nets = build_all_modules(cfg, "cpu")
     load_jax_train_state(nets, env["tree"])
     return create_train_state(cfg, "cpu", nets)

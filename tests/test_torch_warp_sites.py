@@ -28,9 +28,16 @@ from torch_parity import one_torch_thread, pairing_counts  # noqa: F401
 BATCH = 2
 
 
+def _tiny():
+    """tiny_config() without remat: these tests record and hold the warp
+    calls, which a recompute would not make again anyway."""
+    cfg = tiny_config()
+    return dataclasses.replace(cfg, model=dataclasses.replace(cfg.model, remat=False))
+
+
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_generator_step_recorder_records_the_warp_call(dtype):
-    cfg = tiny_config()
+    cfg = _tiny()
     D, S, C = cfg.model.depth, cfg.model.image_size // 4, cfg.model.app_channels
     x, inp = bench_warp.generator_step_inputs(dtype, device="cpu", cfg=cfg, batch=BATCH)
     assert generator.warp_single is fast_warp.warp_single
@@ -55,7 +62,7 @@ def test_pairing_share_at_the_tiny_generator_step():
     lane distance 8 (the fp32 Generator at full width, C = 32) and 2 (C = 8
     here): its deformation is near the identity, so most x corners pair, at
     most 3 of 4 upper ones at distance 8 (a warp holds 4 voxels)."""
-    cfg = tiny_config()
+    cfg = _tiny()
     x, grid = bench_warp.generator_step_inputs("float32", device="cpu", cfg=cfg, batch=BATCH)
     coords = [c.contiguous() for c in fast_warp._grid_pixels(x, grid, 1)]
     for cvs, most in ((8, 0.375), (2, 0.5)):
@@ -69,7 +76,7 @@ def test_pairing_share_at_the_tiny_generator_step():
 def test_recorded_step_is_the_unrecorded_step():
     """The recorder calls the real warp_single: the step's losses are the
     bits of the same step run without it."""
-    cfg = tiny_config()
+    cfg = _tiny()
     (x, grid), out = bench_warp.record_first_call(cfg, generator, "warp_single", "cpu", BATCH)
     state = create_train_state(cfg, device=torch.device("cpu"))
     g = torch.Generator(device="cpu").manual_seed(0)
@@ -86,7 +93,7 @@ def test_recorded_step_is_the_unrecorded_step():
 def test_recorder_restores_warp_single_when_the_step_raises():
     """A step on a compute dtype the port refuses raises after the patch
     is in place; the patch is undone all the same."""
-    cfg = tiny_config()
+    cfg = _tiny()
     cfg = dataclasses.replace(cfg, model=dataclasses.replace(cfg.model, compute_dtype="float16"))
     with pytest.raises(ValueError, match="compute_dtype"):
         bench_warp.record_first_call(cfg, generator, "warp_single", "cpu", BATCH)
