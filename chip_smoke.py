@@ -189,6 +189,24 @@ Phases, each fatal on failure (exit code 1, no result line):
               CPU, eval and training forms (VARIANT_TOL); one fp32 remat
               training step of linear at batch 8 (losses and both Adam
               states finite, its launches).
+     library  the modules no model path runs (ops/grid_sample.py,
+              ops/rotations.py, the channel-first heatmaps, nn/wn.py,
+              losses/lpips.py, contrastive_loss and the conv contrastive
+              heads): each on the card against the port on the CPU at its
+              CPU test's sizes, from the same seeded inputs and weights,
+              outputs and the gradients the tests hold (LIBRARY_TOL; the
+              running statistics of ContrastiveHeadConv2's training form;
+              fuse_wn's weights; LPIPS(x, x) = 0); then timed with CUDA
+              events at a size its users run it: grid_sample_2d at
+              x[8,256,256,3] and grid_sample_3d at x[8,16,64,64,32] in all
+              six modes (forward, forward + backward) beside F.grid_sample
+              on the same tensors (its ms and the largest difference, a
+              yardstick), LPIPS on two [8,256,256,3] batches (ms, peak
+              memory), ContrastiveHeadConv on [8,64,64,32],
+              ContrastiveHeadConv2 on [8,4,4,256] (training and eval forms),
+              Conv2dWN 3x3 256->256 on [8,256,64,64], ConvTranspose2dWNUB
+              64->32 to 128x128, downsample2d ("reflect") on
+              [8,3,256,256], the rotations at N = 4096.
   9. probes   the probe path: the run() of each of the four probes of
               facevae_tpu_torch/probes/ (TPU kernels 7-10, csrc/probe_*.cu)
               at the probe's own shapes, as its entry point calls it, with
@@ -212,7 +230,8 @@ Then a JSON line of kernel results (``launches_by_path`` per main path,
 ``eval``, ``train_loop``, ``remat``, ``variants`` and the graph path's
 ``scan_float32`` / ``scan_bfloat16`` included; kernels 1 and 4 also ``eval_n1``,
 kernel 1 also ``aug``), the eval rates, the training loop's rates, the
-dp and scan figures, the card's name and power limit, and the last line
+dp, scan, remat, variants and library figures, the card's name and power
+limit, and the last line
 {"ok": true, "device": {...}}.  There is no CPU fallback: without a CUDA
 device the script fails.  To debug one phase on the card, import this
 module and call its phase function.
@@ -349,6 +368,15 @@ VARIANT_CPU = {"conv": (128, {}, 2), "conv2": (128, {}, 2), "conv5": (128, {}, 2
                "linear": (256, {}, 1), "lin_conv": (256, {}, 1)}
 VARIANT_TOL = {"eval": 1e-4, "train": 1e-3}
 CONV6_KP_TOL = 3e-3
+# the library phase (the modules no model path runs): card vs CPU at the CPU
+# tests' sizes and tolerances (tests/test_torch_grid_sample.py,
+# test_torch_rotations_heatmap.py, test_torch_wn.py, test_torch_lpips.py), of
+# max|cpu|; at full size (N_BATCH, VOLUME, the AUG_SIZE frame) grid_sample
+# vs F.grid_sample, of max|x|; the rotations' N there
+LIBRARY_TOL = {"grid_fwd": 1e-6, "grid_grad": 1e-5, "rot": {"float32": 1e-6, "float64": 1e-12},
+               "heat": {"float32": 1e-6, "bfloat16": 2.0 ** -6}, "layer": 1e-5, "fuse": 1e-6,
+               "net": 1e-4, "grid_vs_library": 1e-5}
+LIBRARY_ROTATIONS, LIBRARY_SEED = 4096, 15
 
 
 BENCH_MS = {}                     # phases 7-8's median step ms by dtype, for phase scan
@@ -2535,6 +2563,317 @@ def phase_variants(card):
     return total, rows
 
 
+def _cotangent(shape, seed):
+    """A seeded N(0, 1) cotangent on the CPU (the same on every device)."""
+    import torch
+    return torch.randn(shape, generator=torch.Generator().manual_seed(seed))
+
+
+def _grads_on(device, build, args, seed, nudge=0.0):
+    """build(device) -> (fn, params); fn(*args on device): its outputs, then
+    the gradients of sum(out * c) (c from ``seed``) with respect to the
+    floating args and params, all on the CPU.  ``nudge`` scales the first
+    arg by 1 + nudge."""
+    import torch
+    fn, params = build(device)
+    for p in params:
+        p.grad = None
+    xs = [a.to(device).clone() for a in args]
+    if nudge:
+        xs[0].mul_(1.0 + nudge)
+    xs = [x.requires_grad_() if x.is_floating_point() else x for x in xs]
+    outs = fn(*xs)
+    outs = list(outs) if isinstance(outs, (tuple, list)) else [outs]
+    loss = sum((o.float() * _cotangent(o.shape, seed + i).to(device)).sum()
+               for i, o in enumerate(outs))
+    loss.backward()
+    grads = [x.grad for x in xs if x.requires_grad] + [p.grad for p in params]
+    return [t.detach().float().cpu() for t in outs + grads]
+
+
+def _held_card(what, card, refs, tols, rows_bad):
+    """Hold each card tensor to the nearest of the CPU answers ``refs``
+    (lists alike) within tol x max|ref[0]|: tols[0] for the first (the
+    output), tols[1] for the rest; returns the worst err / limit."""
+    worst = 0.0
+    for i, t in enumerate(card):
+        tol = tols[0] if i == 0 else tols[1]
+        scale = float(refs[0][i].abs().max())
+        err = min(float((t - r[i]).abs().max()) for r in refs)
+        limit = tol * scale
+        worst = max(worst, err / limit if limit else (0.0 if err == 0 else float("inf")))
+        if err > limit:
+            rows_bad.append(f"{what} tensor {i}: card vs CPU {err:.3e} > {tol:g} x {scale:.3e}")
+    return worst
+
+
+def _library_modules():
+    """The port's library modules at the CPU tests' sizes, seeded, on the
+    CPU."""
+    import torch
+    from facevae_tpu_torch.losses import LPIPS, ContrastiveHeadConv, ContrastiveHeadConv2
+    from facevae_tpu_torch.nn import init_parameters, wn
+    nets = torch.nn.ModuleDict({
+        "LinearWN": wn.LinearWN(7, 5),
+        "Conv2dWN": wn.Conv2dWN(3, 5, 3, stride=2, padding=1),
+        "ConvTranspose2dWN": wn.ConvTranspose2dWN(4, 4, 3, stride=2, padding=1),
+        "Conv2dUB": wn.Conv2dUB(3, 5, 8, 6, 3, padding=1),
+        "Conv2dWNUB": wn.Conv2dWNUB(3, 5, 8, 6, 3, padding=1),
+        "ConvTranspose2dUB": wn.ConvTranspose2dUB(3, 5, 10, 8, 4, stride=2, padding=1),
+        "ConvTranspose2dWNUB": wn.ConvTranspose2dWNUB(3, 5, 10, 8, 4, stride=2, padding=1),
+        "Conv3dUB": wn.Conv3dUB(2, 4, 3, 4, 5, 3, padding=1),
+        "ConvTranspose3dUB": wn.ConvTranspose3dUB(2, 4, 6, 8, 10, 4, stride=2, padding=1),
+        "LPIPS": LPIPS(),
+        "ContrastiveHeadConv": ContrastiveHeadConv(8),
+        "ContrastiveHeadConv2": ContrastiveHeadConv2(),
+    })
+    return init_parameters(nets, torch.Generator().manual_seed(LIBRARY_SEED))
+
+
+def _library_parity(card, device="cuda"):
+    """Each library module on the card against the port on the CPU at the
+    CPU tests' sizes and tolerances (LIBRARY_TOL), from the same seeded
+    inputs and weights: outputs and the gradients the tests hold.  Returns
+    {module: worst err / limit}."""
+    import copy
+    import torch
+    from facevae_tpu_torch.losses import contrastive_loss
+    from facevae_tpu_torch.nn import fuse_wn, wn
+    from facevae_tpu_torch.ops import grid_sample as gs, heatmap, rotations as rot
+    T = LIBRARY_TOL
+    g = torch.Generator().manual_seed(LIBRARY_SEED)
+    nets = {"cpu": _library_modules()}
+    nets[device] = copy.deepcopy(nets["cpu"]).to(device)
+    bad, worst = [], {}
+
+    def hold(what, build, args, tols, nudged=False):
+        cpu = [_grads_on("cpu", build, args, 1)]
+        if nudged:
+            cpu += [_grads_on("cpu", build, args, 1, e) for e in (2.0 ** -22, -2.0 ** -22)]
+        on_card = _grads_on(device, build, args, 1)
+        worst[what] = max(worst.get(what, 0.0), _held_card(what, on_card, cpu, tols, bad))
+
+    def fn_only(f):
+        return lambda device: (f, [])
+
+    shapes = {2: ((2, 5, 7, 3), (2, 6, 4)), 3: ((2, 3, 5, 4, 3), (2, 4, 3, 5))}
+    for d, (xs, gshape) in shapes.items():
+        f = gs.grid_sample_2d if d == 2 else gs.grid_sample_3d
+        for one in (False, True):
+            shape = xs[:1] + (1,) + xs[2:] if one else xs
+            x = torch.randn(shape, generator=g)
+            grid = torch.rand(gshape + (d,), generator=g) * 4 - 2
+            for align in (True, False):
+                for pad in gs.PADDING_MODES:
+                    hold(f"grid_sample_{d}d", fn_only(
+                        lambda x, grid, f=f, a=align, p=pad: f(x, grid, align_corners=a,
+                                                                 padding_mode=p)),
+                         (x, grid), (T["grid_fwd"], T["grid_grad"]))
+    for dtype in (torch.float32, torch.float64):
+        # rotations (and relative rotations) by 0.3 to 2.0 rad: near 0 and pi
+        # arccos and the quaternion's 1 / w amplify the card's and the CPU's
+        # one-ulp differences in sqrt, sin, cos past 1e-6 (at up to 2.8 rad
+        # and a relative angle near pi: 1.1e-6 and 2.6e-6)
+        r, r2 = (torch.nn.functional.normalize(torch.randn(64, 3, generator=g, dtype=dtype), dim=1)
+                 * (0.3 + 1.7 * torch.rand(64, 1, generator=g, dtype=dtype)) for _ in range(2))
+        q = torch.randn(64, 4, generator=g, dtype=dtype)
+
+        def rotations(r, r2, q):
+            R = rot.rodrigues(r)
+            axis, angle = rot.matrix_to_axisangle(R)
+            return (R, rot.quaternion_to_matrix(q), rot.matrix_to_quaternion(R), axis, angle,
+                    rot.axisangle_to_matrix(axis, angle),
+                    rot.rotation_interp(R, rot.rodrigues(r2) @ R, 0.3))
+        tol = T["rot"][str(dtype).split(".")[-1]]
+        cpu = rotations(r, r2, q)
+        on_card = rotations(r.to(device), r2.to(device), q.to(device))
+        worst["rotations"] = max(worst.get("rotations", 0.0), _held_card(
+            "rotations", [t.cpu() for t in on_card], [list(cpu)], (tol, tol), bad))
+    for name, dtype in (("float32", torch.float32), ("bfloat16", torch.bfloat16)):
+        out = torch.randn(2, 5, 4, 6, 7, generator=g) * 3
+        kp = torch.rand(2, 5, 2, generator=g) * 2 - 1
+
+        def heat(o, k):
+            return (heatmap.out2heatmap(o), heatmap.heatmap2kp(o),
+                    heatmap.kp2gaussian_2d(k, (9, 7)))
+        cpu = [t.float() for t in heat(out.to(dtype), kp.to(dtype))]
+        on_card = [t.float().cpu() for t in heat(out.to(dtype).to(device), kp.to(dtype).to(device))]
+        worst["heatmaps"] = max(worst.get("heatmaps", 0.0), _held_card(
+            "heatmaps", on_card, [cpu], (T["heat"][name],) * 2, bad))
+    layer_inputs = {"LinearWN": (3, 7), "Conv2dWN": (2, 3, 9, 8), "ConvTranspose2dWN": (2, 4, 5, 4),
+                    "Conv2dUB": (2, 3, 8, 6), "Conv2dWNUB": (2, 3, 8, 6),
+                    "ConvTranspose2dUB": (2, 3, 5, 4), "ConvTranspose2dWNUB": (2, 3, 5, 4),
+                    "Conv3dUB": (1, 2, 3, 4, 5), "ConvTranspose3dUB": (1, 2, 3, 4, 5)}
+    for name, shape in layer_inputs.items():
+        hold(name, lambda device, n=name: (nets[device][n], list(nets[device][n].parameters())),
+             (torch.randn(shape, generator=g),), (T["layer"], T["layer"]))
+    x = torch.rand(2, 3, 11, 10, generator=g)
+    for what, f in (("downsample2d", lambda x: wn.downsample2d(x, 2, "reflect")),
+                    ("dilate2d", lambda x: wn.dilate2d(3.0 * x, 3, 1, 1))):
+        hold(what, fn_only(f), (x,), (T["layer"], T["layer"]))
+    fused = {d: fuse_wn(copy.deepcopy(nets[d])) for d in nets}
+    for k, p in fused["cpu"].state_dict().items():
+        worst["fuse_wn"] = max(worst.get("fuse_wn", 0.0), _held_card(
+            f"fuse_wn {k}", [fused[device].state_dict()[k].float().cpu()], [[p.float()]],
+            (T["fuse"], T["fuse"]), bad))
+    x, y = (torch.rand(2, 32, 32, 3, generator=g) * 2 - 1 for _ in range(2))
+    hold("LPIPS", lambda device: (nets[device]["LPIPS"], []), (x, y), (T["net"], T["net"]))
+    with torch.no_grad():
+        same = nets[device]["LPIPS"](x.to(device), x.to(device))
+    if not torch.equal(same, torch.zeros_like(same)):
+        bad.append(f"LPIPS(x, x) on the card {same.tolist()}, not 0")
+    f1, f2 = (torch.randn(3, 2, 4, 5, generator=g) for _ in range(2))
+    hold("contrastive_loss", fn_only(contrastive_loss), (f1, f2), (T["layer"], T["layer"]))
+    f1, f2 = (torch.randn(2, 32, 32, 8, generator=g) for _ in range(2))
+    hold("ContrastiveHeadConv", lambda device: (
+        lambda a, b: nets[device]["ContrastiveHeadConv"](a, b, nets[device]["LPIPS"]),
+        list(nets[device]["ContrastiveHeadConv"].parameters())), (f1, f2),
+        (T["net"], T["net"]), nudged=True)
+    f1, f2 = (torch.randn(4, 4, 4, 256, generator=g) for _ in range(2))
+    for train in (True, False):
+        head = {d: copy.deepcopy(nets[d]["ContrastiveHeadConv2"]).train(train) for d in nets}
+        params = {d: [p for k, p in head[d].named_parameters()
+                      if not (train and k == "proj_conv.bias")] for d in head}
+        hold(f"ContrastiveHeadConv2 {'train' if train else 'eval'}",
+             lambda device: (head[device], params[device]), (f1, f2), (T["net"], T["net"]))
+        if train:          # the running statistics after the two forwards (cpu, card)
+            for k, b in head["cpu"].named_buffers():
+                worst["ContrastiveHeadConv2 stats"] = max(
+                    worst.get("ContrastiveHeadConv2 stats", 0.0),
+                    _held_card(f"ContrastiveHeadConv2 {k}",
+                               [dict(head[device].named_buffers())[k].cpu()],
+                               [[b]], (T["net"], T["net"]), bad))
+    check(not bad, "library card vs CPU: " + "; ".join(bad[:8]))
+    return worst
+
+
+def _library_timings(card, device="cuda"):
+    """Each module at a size its users run it, timed with CUDA events
+    (cuda_ms): forward, and forward + backward where it is differentiated in
+    use; grid_sample beside F.grid_sample on the same tensors (contiguous
+    NC(D)HW copies made before the call: a yardstick)."""
+    import torch
+    import torch.nn.functional as F
+    from facevae_tpu_torch.losses import LPIPS, ContrastiveHeadConv, ContrastiveHeadConv2
+    from facevae_tpu_torch.nn import init_parameters, wn
+    from facevae_tpu_torch.ops import grid_sample as gs, rotations as rot
+    dev = torch.device(device)
+    g = torch.Generator(device=dev).manual_seed(LIBRARY_SEED)
+    B, (D, H, W), S = N_BATCH, VOLUME, AUG_SIZE
+    rows = []
+
+    def row(name, shape, fwd, bwd=None):
+        with torch.no_grad():
+            r = {"name": name, "shape": shape, "ms": cuda_ms(fwd)}
+        if bwd is not None:
+            r["fwd_bwd_ms"] = cuda_ms(bwd)
+        rows.append(r)
+        print(f"[library] {card}: {json.dumps(r)}")
+
+    def fwd_bwd(f, *xs):
+        def run():
+            for x in xs:
+                x.grad = None
+            f().float().sum().backward()
+        return run
+
+    for d, (xshape, gshape) in {2: ((B, S, S, 3), (B, S, S)),
+                                3: ((B, D, H, W, 32), (B, D, H, W))}.items():
+        x = torch.randn(xshape, generator=g, device=dev).requires_grad_()
+        grid = (torch.rand(gshape + (d,), generator=g, device=dev) * 2.2 - 1.1).requires_grad_()
+        x_cf = x.detach().movedim(-1, 1).contiguous()
+        f = gs.grid_sample_2d if d == 2 else gs.grid_sample_3d
+        for align in (True, False):
+            for pad in gs.PADDING_MODES:
+                def ours(a=align, p=pad):
+                    return f(x, grid, align_corners=a, padding_mode=p)
+
+                def library(a=align, p=pad):
+                    return F.grid_sample(x_cf, grid.detach(), mode="bilinear", padding_mode=p,
+                                         align_corners=a)
+                with torch.no_grad():
+                    diff = float((ours().movedim(-1, 1) - library()).abs().max())
+                    ms = cuda_ms(ours)
+                    library_ms = cuda_ms(library)
+                r = {"name": f"grid_sample_{d}d", "shape": list(xshape),
+                     "align_corners": align, "padding_mode": pad, "ms": ms,
+                     "fwd_bwd_ms": cuda_ms(fwd_bwd(ours, x, grid)),
+                     "max_abs_diff_vs_F_grid_sample": diff, "F_grid_sample_ms": library_ms}
+                rows.append(r)
+                print(f"[library] {card}: {json.dumps(r)}")
+                check(diff <= LIBRARY_TOL["grid_vs_library"] * float(x.detach().abs().max()),
+                      f"grid_sample_{d}d {align} {pad}: F.grid_sample differs by {diff:.3e}")
+    del x, grid, x_cf
+    lpips = LPIPS(device=dev)
+    init_parameters(lpips, torch.Generator(device=dev).manual_seed(LIBRARY_SEED))
+    a, b = (torch.rand(B, S, S, 3, generator=g, device=dev) * 2 - 1 for _ in range(2))
+    peaks = {}
+    for key, f in (("fwd", lambda: lpips(a, b)), ("fwd_bwd", fwd_bwd(lambda: lpips(a, b), a))):
+        if key == "fwd_bwd":
+            a.requires_grad_()
+        torch.cuda.synchronize()
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        with torch.set_grad_enabled(key == "fwd_bwd"):
+            f()
+        torch.cuda.synchronize()
+        peaks[key] = (torch.cuda.max_memory_allocated() - base) / 2 ** 30
+    with torch.no_grad():
+        dist = lpips(a, b)
+        check(bool(torch.isfinite(dist).all()) and tuple(dist.shape) == (B,), f"LPIPS {dist}")
+        fwd_ms = cuda_ms(lambda: lpips(a, b))
+    rows.append({"name": "LPIPS", "shape": [B, S, S, 3], "ms": fwd_ms,
+                 "fwd_bwd_ms": cuda_ms(fwd_bwd(lambda: lpips(a, b), a)),
+                 "peak_gib_fwd": peaks["fwd"], "peak_gib_fwd_bwd": peaks["fwd_bwd"]})
+    print(f"[library] {card}: {json.dumps(rows[-1])}")
+    del a, b
+    head = ContrastiveHeadConv(32, device=dev)
+    init_parameters(head, torch.Generator(device=dev).manual_seed(LIBRARY_SEED))
+    f1, f2 = (torch.randn(B, H, W, 32, generator=g, device=dev) for _ in range(2))
+    row("ContrastiveHeadConv", [B, H, W, 32], lambda: head(f1, f2, lpips),
+        fwd_bwd(lambda: head(f1, f2, lpips)))
+    head2 = ContrastiveHeadConv2(device=dev)
+    init_parameters(head2, torch.Generator(device=dev).manual_seed(LIBRARY_SEED))
+    f1, f2 = (torch.randn(B, 4, 4, 256, generator=g, device=dev) for _ in range(2))
+    for train in (True, False):
+        head2.train(train)
+        row(f"ContrastiveHeadConv2 {'train' if train else 'eval'}", [B, 4, 4, 256],
+            lambda: head2(f1, f2), fwd_bwd(lambda: head2(f1, f2)))
+    layers = (("Conv2dWN 3x3 256->256", wn.Conv2dWN(256, 256, 3, padding=1, device=dev),
+               (B, 256, H, W)),
+              (f"ConvTranspose2dWNUB 64->32 stride 2 to {2 * H}x{2 * W}",
+               wn.ConvTranspose2dWNUB(64, 32, 2 * H, 2 * W, 4, stride=2, padding=1, device=dev),
+               (B, 64, H, W)))
+    for name, layer, shape in layers:
+        init_parameters(torch.nn.Sequential(layer), torch.Generator(device=dev).manual_seed(1))
+        x = torch.randn(shape, generator=g, device=dev)
+        row(name, list(shape), lambda: layer(x), fwd_bwd(lambda: layer(x)))
+    x = torch.rand(B, 3, S, S, generator=g, device=dev)
+    row("downsample2d reflect", [B, 3, S, S], lambda: wn.downsample2d(x, 1, "reflect"))
+    r = torch.randn(LIBRARY_ROTATIONS, 3, generator=g, device=dev)
+    R0, R1 = rot.rodrigues(r), rot.rodrigues(r.flip(0))
+    row("rodrigues", [LIBRARY_ROTATIONS, 3], lambda: rot.rodrigues(r))
+    row("matrix_to_quaternion", [LIBRARY_ROTATIONS, 3, 3], lambda: rot.matrix_to_quaternion(R0))
+    row("rotation_interp", [LIBRARY_ROTATIONS, 3, 3], lambda: rot.rotation_interp(R0, R1, 0.3))
+    return rows
+
+
+def phase_library(card):
+    """The library modules no model path runs (ops/grid_sample.py,
+    ops/rotations.py, the channel-first heatmaps, nn/wn.py, losses/lpips.py,
+    the conv contrastive heads): on the card against the CPU at the CPU
+    tests' sizes, then timed at full size."""
+    t0 = time.perf_counter()
+    worst = _library_parity(card)
+    print(f"[library] {card}: card vs CPU at the CPU tests' sizes, worst err/limit by module "
+          f"{json.dumps({k: round(v, 4) for k, v in worst.items()})} "
+          f"({time.perf_counter() - t0:.1f} s)")
+    rows = _library_timings(card)
+    return {"parity_worst": worst, "rows": rows}
+
+
 def _probe_row(name, out, ref, r, plain_ms, site):
     """One kernel-vs-plain comparison of phase 9 (out, ref: the two results
     on the same inputs; r: the probe's run() figures)."""
@@ -2685,6 +3024,7 @@ def main(argv=None) -> int:
                          ("dp", lambda: phase_dp(card)), ("scan", lambda: phase_scan(card)),
                          ("remat", lambda: phase_remat(card)),
                          ("variants", lambda: phase_variants(card)),
+                         ("library", lambda: phase_library(card)),
                          ("probes", phase_probes)):
             # a train state lives in reference cycles, which only the
             # collector frees: collect them, so that a phase's peak memory
@@ -2716,6 +3056,8 @@ def main(argv=None) -> int:
                 det_paths["remat"] = paths["remat"]
             elif name == "variants":
                 paths["variants"], variant_rows = out
+            elif name == "library":
+                library_rows = out
             elif name == "probes":
                 probe_rows, probe_counts = out
     except PhaseError as e:
@@ -2764,6 +3106,7 @@ def main(argv=None) -> int:
     print(f"[scan] {json.dumps(scan_rates)}")
     print(f"[remat] {json.dumps(remat_rows)}")
     print(f"[variants] {json.dumps(variant_rows)}")
+    print(f"[library] {json.dumps({'card': card, **library_rows})}")
     print(f"[done] {time.perf_counter() - t_all:.1f} s; phases {json.dumps(phase_s)}")
     print(smi())
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -7,15 +7,17 @@ on dict order (jit round trips alphabetize keys):
 
   params/<path>/kernel  HWIO / DHWIO / (in,out) -> <path>.weight OIHW / OIDHW / (out,in)
   params/<path>/bias                            -> <path>.bias
-  params/<path>/weight  (the ELR layers, torch's layouts already)
+  params/<path>/weight  (the ELR and WN / UB layers, torch's layouts already)
                                                 -> <path>.weight, as it is
+  params/<path>/g       (the WN layers' gain)   -> <path>.g
   params/<path>/scale   (BatchNorm, InstanceNorm)-> <path>.weight
   batch_stats/<path>/mean, var                  -> <path>.running_mean, .running_var
   spectral/<path>/u                             -> <path>.weight_u
   spectral/<path>/v     (K..., I) flattening     -> <path>.weight_v in (I, K...) order
 
-The way back needs to know which weights are ELR weights: weight_as_is(net)
-lists them (nn/elr.py marks its classes).
+The way back needs to know which weights are kept as they are:
+weight_as_is(net) lists them (nn/elr.py and nn/wn.py mark their classes).
+A bias goes as it is either way, the untied biases' [*spatial, out] too.
 
 It is strict: a leaf with no counterpart, a parameter with no leaf, or a shape
 mismatch raises ValueError.
@@ -111,7 +113,7 @@ def state_dict_from_jax(variables: Mapping[str, Any]) -> Dict[str, np.ndarray]:
         out[key] = np.ascontiguousarray(value)
 
     leaf_names = {"params": {"kernel": "weight", "bias": "bias", "scale": "weight",
-                             "weight": "weight"},
+                             "weight": "weight", "g": "g"},
                   "batch_stats": {"mean": "running_mean", "var": "running_var"},
                   "spectral": {"u": "weight_u", "v": "weight_v"}}
     for col in ("params", "batch_stats", "spectral"):
@@ -134,9 +136,9 @@ def state_dict_from_jax(variables: Mapping[str, Any]) -> Dict[str, np.ndarray]:
 
 
 def weight_as_is(net: torch.nn.Module) -> FrozenSet[str]:
-    """The state_dict keys of ``net``'s ELR weights, which the JAX package
-    stores as "weight" leaves in torch's layout."""
-    return frozenset(f"{name}.weight" for name, m in net.named_modules()
+    """The state_dict keys of ``net``'s ELR and WN / UB weights, which the
+    JAX package stores as "weight" leaves in torch's layout."""
+    return frozenset(f"{name}.weight" if name else "weight" for name, m in net.named_modules()
                      if getattr(m, "weight_as_is", False))
 
 
@@ -147,7 +149,8 @@ def jax_tree_from_state_dict(sd: Mapping[str, Any],
     nested numpy (collections that would be empty left out).  The keys in
     ``as_is`` (weight_as_is) go to "weight" leaves unchanged."""
     out: Dict[str, Dict[str, Any]] = {}
-    names = {"bias": ("params", "bias"), "running_mean": ("batch_stats", "mean"),
+    names = {"bias": ("params", "bias"), "g": ("params", "g"),
+             "running_mean": ("batch_stats", "mean"),
              "running_var": ("batch_stats", "var"), "weight_u": ("spectral", "u"),
              "weight_v": ("spectral", "v")}
     for key in sorted(sd, key=natural_key):

@@ -18,6 +18,14 @@ VGG16_BLOCKS: Tuple[Tuple[int, ...], ...] = ((64, 64), (128, 128), (256, 256, 25
                                              (512, 512, 512), (512,))
 
 
+def vgg19_taps() -> Tuple[str, ...]:
+    return ("relu_1_1", "relu_2_1", "relu_3_1", "relu_4_1", "relu_5_1")
+
+
+def vggface_taps() -> Tuple[str, ...]:
+    return ("relu_1_1", "relu_2_1", "relu_3_1", "relu_4_1", "relu_5_1")
+
+
 class VGGFeatures(nn.Module):
     """x [N,3,H,W] -> {"relu_i_1": [N,C,h,w]} for i = 1..5."""
 

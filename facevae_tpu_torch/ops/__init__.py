@@ -1,8 +1,8 @@
 """Pure tensor ops (port of facevae_tpu/ops): geometry.py, heatmap.py,
-interpolate.py, motion.py, normalization.py, tps.py, and fast_warp.py with
-the warp kernels' wrappers.  Exported as the JAX package exports its own,
-where the port has the op (its resize / pooling ops take PyTorch's NC(D)HW
-layout)."""
+grid_sample.py, interpolate.py, motion.py, normalization.py, tps.py,
+rotations.py (not exported, as in the JAX package), and fast_warp.py with
+the warp kernels' wrappers.  Exported as the JAX package exports its own
+(the resize / pooling ops take PyTorch's NC(D)HW layout)."""
 from facevae_tpu_torch.ops.geometry import (
     make_coordinate_grid_2d,
     make_coordinate_grid_3d,
@@ -12,7 +12,13 @@ from facevae_tpu_torch.ops.geometry import (
     transform_kp,
     transform_kp_with_new_pose,
 )
-from facevae_tpu_torch.ops.heatmap import kp2gaussian_3d
+from facevae_tpu_torch.ops.heatmap import (
+    heatmap2kp,
+    kp2gaussian_2d,
+    kp2gaussian_3d,
+    out2heatmap,
+)
+from facevae_tpu_torch.ops.grid_sample import grid_sample_2d, grid_sample_3d
 from facevae_tpu_torch.ops.interpolate import (
     avg_pool_2d,
     avg_pool_3d,

@@ -15,6 +15,7 @@ import torch
 
 from facevae_tpu_torch.ops.fast_warp import warp_multi_pixel
 from facevae_tpu_torch.ops.geometry import make_coordinate_grid_2d
+from facevae_tpu_torch.ops.grid_sample import _apply_padding, _unnormalize, grid_sample_2d
 
 
 class TransformParams(NamedTuple):
@@ -47,43 +48,10 @@ def warp_coordinates(tp: TransformParams, coordinates: torch.Tensor) -> torch.Te
     return transformed + radial
 
 
-def _reflect(coord, lo: float, hi: float):
-    """Reflect coordinates into [lo, hi] (torch's reflect_coordinates)."""
-    span = max(hi - lo, 1e-12)
-    coord = (coord - lo).abs()
-    coord = torch.remainder(coord, 2.0 * span)
-    coord = torch.where(coord > span, 2.0 * span - coord, coord)
-    return coord + lo
-
-
 def _reflected_pixels(g, size: int):
     """Normalized -> pixel coordinates, reflected into [0, size-1] and
     clipped: reflection padding becomes interior sampling."""
-    p = (g + 1.0) * 0.5 * (size - 1)
-    return torch.clamp(_reflect(p, 0.0, float(size - 1)), 0.0, float(size - 1))
-
-
-def grid_sample_2d_reflect(x: torch.Tensor, grid: torch.Tensor) -> torch.Tensor:
-    """Bilinear grid_sample of x [N,H,W,C] at grid [N,Ho,Wo,2] in [-1,1],
-    align_corners=True, reflection padding -> [N,Ho,Wo,C] fp32 (the JAX
-    package's grid_sample_2d, written out so the two agree bit for bit)."""
-    N, H, W, C = x.shape
-    _, Ho, Wo, _ = grid.shape
-    g = grid.float()
-    gx, gy = _reflected_pixels(g[..., 0], W), _reflected_pixels(g[..., 1], H)
-    x0, y0 = torch.floor(gx), torch.floor(gy)
-    tx, ty = gx - x0, gy - y0
-    flat = x.float().reshape(N, H * W, C)
-    out = torch.zeros(N, Ho, Wo, C, dtype=torch.float32, device=x.device)
-    for dy in (0, 1):
-        for dx in (0, 1):
-            w = (tx if dx else 1.0 - tx) * (ty if dy else 1.0 - ty)
-            ix = torch.clamp(x0 + dx, 0, W - 1).long()
-            iy = torch.clamp(y0 + dy, 0, H - 1).long()
-            idx = (iy * W + ix).reshape(N, Ho * Wo, 1).expand(N, Ho * Wo, C)
-            vals = torch.gather(flat, 1, idx).reshape(N, Ho, Wo, C)
-            out = out + vals * w[..., None]
-    return out
+    return _apply_padding(_unnormalize(g, size, True), size, "reflection", True)
 
 
 def transform_frame(tp: TransformParams, frame: torch.Tensor,
@@ -91,8 +59,9 @@ def transform_frame(tp: TransformParams, frame: torch.Tensor,
     """Warp frame [N,H,W,C] by the TPS-transformed sampling grid (reference
     trainer.py:106-110: grid_sample 2D, align_corners=True, reflection).
 
-    fp32: the exact gather, result fp32.  bf16: the JAX package's branch on
-    its chip (facevae_tpu/ops/tps.py:71-83), on every device: the pixel
+    fp32: grid_sample_2d's exact gather (as the JAX package's fp32
+    branch), result fp32.  bf16: the JAX package's branch on its chip
+    (facevae_tpu/ops/tps.py:71-83), on every device: the pixel
     coordinates are reflected and clipped up front, then the bf16 frame goes
     through warp_multi_pixel as a D=1 volume (the multi-grid warp kernel at
     K1=1, C=3; its plain version on the CPU); result bf16."""
@@ -107,4 +76,4 @@ def transform_frame(tp: TransformParams, frame: torch.Tensor,
         return out.reshape(N, H, W, C)
     if compute_dtype != torch.float32:
         raise ValueError(f"transform_frame computes in float32 or bfloat16, not {compute_dtype}")
-    return grid_sample_2d_reflect(frame.float(), grid)
+    return grid_sample_2d(frame.float(), grid, align_corners=True, padding_mode="reflection")
