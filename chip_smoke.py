@@ -5,8 +5,10 @@
 
 Phases, each fatal on failure (exit code 1, no result line):
   1. device   nvidia-smi name and power limit, torch / CUDA versions, the
-              numerics switches (TF32 off), and whether imageio, PIL, cv2,
-              pandas, matplotlib and tensorboardX import (printed only).
+              numerics switches (TF32 off), the versions of PIL and cv2 (the
+              port's readers) with cv2's video backends, and whether
+              imageio, pandas, matplotlib and tensorboardX, which the port
+              does not need, are installed (looked up, not imported).
   2. build    nvcc-builds every kernel library from csrc/ (warp_fwd,
               warp_bwd, warp_grid, probe_gather, probe_warp), one nvcc per
               source, all started together.
@@ -146,6 +148,23 @@ Phases, each fatal on failure (exit code 1, no result line):
               (every run before passes --remat false): a remat step
               captured and replayed; and --gpu_ids of more cards than the
               machine has: stopped with a message.
+     video    the video datasets and --tensorboard: the same seeded frames
+              (4 identities x 2 clips x 6 frames at 256x256) as .mp4 clips
+              that cv2's VideoWriter encodes (avc1 where it can, else mp4v;
+              printed, with cv2's backends), as .gif clips (write_gif) and
+              as a PNG tree; the host's ms a frame of read_mp4, read_gif and
+              read_png on them; the training CLI in-process over each tree
+              (fp32, batch 8, the fused augmentation, 3 steps, remat off,
+              --tensorboard with a record every step: TrainConfig.vis_every
+              set to 1, which no flag sets): launches as train_loop's fp32
+              runs, ms a step against the PNG tree's, the event files read
+              back by train/tensorboard.read_events (CRCs; loss_all with
+              every loss key at every step; image_show_0 decoding to the
+              Visualizer's grid; the log line), host ms a record and the
+              files' bytes; mode m at --eval_batch 8 over the .mp4 test
+              split (2 videos x 17 frames) from the .mp4 run's epoch file,
+              its launches and frames/s; no module of imageio or
+              tensorboardX imported.
      dp       data parallelism on the one card (remat off, as before remat
               was ported, here and in scan): ModelConfig() fp32 at batch
               8, four steps under torch.use_deterministic_algorithms(True)
@@ -186,7 +205,9 @@ Phases, each fatal on failure (exit code 1, no result line):
               with a last encoder width of 64): InferencePipeline's drive
               batch of 8 (ms, finite, kernels 1 and 4 once each); each
               variant's EFE at its CPU test's size on the card against the
-              CPU, eval and training forms (VARIANT_TOL); one fp32 remat
+              CPU, eval and training forms (VARIANT_TOL; above NEAR_LIMIT
+              of it, the relative error of each module's output and of the
+              EFE's own ops after its last module); one fp32 remat
               training step of linear at batch 8 (losses and both Adam
               states finite, its launches).
      library  the modules no model path runs (ops/grid_sample.py,
@@ -196,7 +217,12 @@ Phases, each fatal on failure (exit code 1, no result line):
               CPU test's sizes, from the same seeded inputs and weights,
               outputs and the gradients the tests hold (LIBRARY_TOL; the
               running statistics of ContrastiveHeadConv2's training form;
-              fuse_wn's weights; LPIPS(x, x) = 0); then timed with CUDA
+              fuse_wn's weights; LPIPS(x, x) = 0; each rotation function on
+              the CPU test's draw, angles by randn(3) x U(0.05, 3) / sqrt(3)
+              with a zero and a tiny vector, given the CPU's own inputs, a
+              miss printed with its row's angle; above NEAR_LIMIT of their
+              limit the heatmaps print each step's share, as phase
+              variants prints each EFE module's); then timed with CUDA
               events at a size its users run it: grid_sample_2d at
               x[8,256,256,3] and grid_sample_3d at x[8,16,64,64,32] in all
               six modes (forward, forward + backward) beside F.grid_sample
@@ -227,11 +253,11 @@ Phases, each fatal on failure (exit code 1, no result line):
               (probe 7: volT's permuted view; probe 8: its fp32 source made
               from rows3 inside the timed call).
 Then a JSON line of kernel results (``launches_by_path`` per main path,
-``eval``, ``train_loop``, ``remat``, ``variants`` and the graph path's
-``scan_float32`` / ``scan_bfloat16`` included; kernels 1 and 4 also ``eval_n1``,
-kernel 1 also ``aug``), the eval rates, the training loop's rates, the
-dp, scan, remat, variants and library figures, the card's name and power
-limit, and the last line
+``eval``, ``train_loop``, ``video``, ``remat``, ``variants`` and the graph
+path's ``scan_float32`` / ``scan_bfloat16`` included; kernels 1 and 4 also
+``eval_n1``, kernel 1 also ``aug``), the eval rates, the training loop's
+rates, the video phase's, the dp, scan, remat, variants and library
+figures, the card's name and power limit, and the last line
 {"ok": true, "device": {...}}.  There is no CPU fallback: without a CUDA
 device the script fails.  To debug one phase on the card, import this
 module and call its phase function.
@@ -377,6 +403,10 @@ LIBRARY_TOL = {"grid_fwd": 1e-6, "grid_grad": 1e-5, "rot": {"float32": 1e-6, "fl
                "heat": {"float32": 1e-6, "bfloat16": 2.0 ** -6}, "layer": 1e-5, "fuse": 1e-6,
                "net": 1e-4, "grid_vs_library": 1e-5}
 LIBRARY_ROTATIONS, LIBRARY_SEED = 4096, 15
+# a card-vs-CPU hold above this share of its limit prints where its error
+# comes from (phase variants: each module of the EFE; phase library: each
+# step of the channel-first heatmaps)
+NEAR_LIMIT = 0.8
 
 
 BENCH_MS = {}                     # phases 7-8's median step ms by dtype, for phase scan
@@ -421,23 +451,51 @@ def phase_device():
     print(f"[device] {card}; torch {torch.__version__}, CUDA {torch.version.cuda}, "
           f"{torch.cuda.get_device_name(0)} x{torch.cuda.device_count()}")
     print(f"[device] numerics {numerics.apply()}")
-    print(f"[device] packages of the JAX package's data path (printed only: the port reads "
-          f"PNG through PIL, --cpu_aug needs cv2, --tensorboard tensorboardX): "
+    print(f"[device] packages the port's data path needs: {json.dumps(needed_packages())}; "
+          f"not needed (the JAX package's: the port reads video and image files through PIL "
+          f"and cv2 and writes TensorBoard files itself): "
           f"{json.dumps(optional_packages())}")
     return card
 
 
-def optional_packages():
-    """Whether each package that the JAX package's data path imports
-    (imageio, PIL, cv2, pandas, matplotlib, tensorboardX) imports here:
-    name -> version, or the error."""
+def needed_packages():
+    """PIL and cv2, which the port's readers and the CPU augmentation
+    import: name -> version, and cv2's video backends (what reads .mp4)
+    and the FFmpeg lines of its build information; a missing one is
+    reported, and fails where it is used."""
     import importlib
     out = {}
-    for name in ("imageio", "PIL", "cv2", "pandas", "matplotlib", "tensorboardX"):
+    for name in ("PIL", "cv2"):
         try:
-            out[name] = getattr(importlib.import_module(name), "__version__", "imports")
-        except Exception as e:                    # printed, never fatal
-            out[name] = f"no ({type(e).__name__}: {e})"
+            out[name] = importlib.import_module(name).__version__
+        except ImportError as e:
+            out[name] = f"no ({e})"
+    if "cv2" in sys.modules:
+        cv2 = sys.modules["cv2"]
+        reg = cv2.videoio_registry
+        out["cv2_backends"] = [reg.getBackendName(b) for b in reg.getBackends()]
+        out["cv2_stream_backends"] = [reg.getBackendName(b) for b in reg.getStreamBackends()]
+        out["cv2_ffmpeg"] = [ln.strip() for ln in cv2.getBuildInformation().splitlines()
+                             if "FFMPEG" in ln or "avcodec" in ln]
+    return out
+
+
+def optional_packages():
+    """Whether each package the JAX package's data path imports and the
+    port does not (imageio, pandas, matplotlib, tensorboardX) is installed
+    here, looked up without importing it (phase video checks that none
+    was imported): name -> version, or "not installed"."""
+    import importlib.metadata
+    import importlib.util
+    out = {}
+    for name in ("imageio", "pandas", "matplotlib", "tensorboardX"):
+        if importlib.util.find_spec(name) is None:
+            out[name] = "not installed"
+            continue
+        try:
+            out[name] = importlib.metadata.version(name)
+        except importlib.metadata.PackageNotFoundError:
+            out[name] = "installed"
     return out
 
 
@@ -1724,6 +1782,276 @@ def phase_train_loop(card):
     return total, aug_rows, {"read_png_ms_per_frame": read_ms, "epochs": runs}
 
 
+def _write_mp4(path, frames, fourcc):
+    """uint8 RGB frames as an .mp4 through cv2's VideoWriter (25 fps)."""
+    import cv2
+    h, w = frames[0].shape[:2]
+    out = cv2.VideoWriter(path, cv2.VideoWriter_fourcc(*fourcc), 25, (w, h))
+    check(out.isOpened(), f"cv2's VideoWriter does not open {fourcc} at {w}x{h}")
+    try:
+        for f in frames:
+            out.write(cv2.cvtColor(f, cv2.COLOR_RGB2BGR))
+    finally:
+        out.release()
+
+
+def _video_trees(root, fourcc):
+    """The same seeded frames (TRAIN_TREE's identities x clips x frames at
+    AUG_SIZE, +-8 levels of grain) as three training trees: png/ (frame
+    directories, write_png), mp4/ (``fourcc`` clips), gif/ (write_gif
+    clips); mp4/test/ holds EVAL_VIDEOS videos of EVAL_FRAMES frames, the
+    other test/ splits are empty."""
+    import os
+    from facevae_tpu_torch.data.image_io import write_gif, write_png
+    from facevae_tpu_torch.data.synthetic import smooth_frames
+    ids, clips, n = TRAIN_TREE
+    for fmt in ("png", "mp4", "gif"):
+        os.makedirs(f"{root}/{fmt}/train")
+        os.makedirs(f"{root}/{fmt}/test")
+    names = [f"id{i}#clip{c}" for i in range(ids) for c in range(clips)]
+    for j, name in enumerate(names):
+        frames = smooth_frames(n, AUG_SIZE, 100 + j, noise=8)
+        os.makedirs(f"{root}/png/train/{name}")
+        for t, f in enumerate(frames):
+            write_png(f"{root}/png/train/{name}/{t:07d}.png", f)
+        _write_mp4(f"{root}/mp4/train/{name}.mp4", frames, fourcc)
+        write_gif(f"{root}/gif/train/{name}.gif", frames)
+    for v in range(EVAL_VIDEOS):
+        _write_mp4(f"{root}/mp4/test/id{v}#clip0.mp4",
+                   smooth_frames(EVAL_FRAMES, AUG_SIZE, 10 * v, noise=8), fourcc)
+
+
+def _timed_writer(writers):
+    """train/tensorboard.py's SummaryWriter with each call's host ms kept by
+    kind and each image kept as the loop passed it (the Visualizer's grid);
+    every writer made is appended to ``writers``."""
+    import numpy as np
+    from facevae_tpu_torch.train import tensorboard as tb
+
+    class TimedWriter(tb.SummaryWriter):
+        def __init__(self, *args, **kwargs):
+            super().__init__(*args, **kwargs)
+            self.ms = {"scalars": [], "image": [], "text": []}
+            self.records = {"scalars": 0, "image": 0, "text": 0}
+            self.images = {}
+            writers.append(self)
+
+        def _timed(self, kind, n, fn, *args, **kwargs):
+            t0 = time.perf_counter()
+            fn(*args, **kwargs)
+            self.ms[kind].append((time.perf_counter() - t0) * 1e3)
+            self.records[kind] += n
+
+        def add_scalars(self, main_tag, values, *args, **kwargs):
+            self._timed("scalars", len(values), super().add_scalars, main_tag, values, *args,
+                        **kwargs)
+
+        def add_image(self, tag, img, step=None, *args, **kwargs):
+            self._timed("image", 1, super().add_image, tag, img, step, *args, **kwargs)
+            self.images[(tag, step)] = np.array(img)
+
+        def add_text(self, *args, **kwargs):
+            self._timed("text", 1, super().add_text, *args, **kwargs)
+    return TimedWriter
+
+
+def _check_events(run_dir, writer, steps, keys):
+    """The event files a run of the CLI wrote under run_dir/runs: every
+    record's CRCs (read_events), the loss_all tag of every loss key at every
+    step index in its own directory, image_show_0 at every step decoding to
+    the grid the Visualizer drew (uint8, as the writer keeps it), the log
+    line at every step.  Returns the files' bytes."""
+    import io
+    import os
+    import numpy as np
+    from PIL import Image
+    from facevae_tpu_torch.train.tensorboard import read_events
+    (logdir,) = os.listdir(f"{run_dir}/runs")
+    base = f"{run_dir}/runs/{logdir}"
+    files = {os.path.relpath(d, base): [os.path.join(d, f) for f in fs]
+             for d, _, fs in os.walk(base) if fs}
+    check(sorted(files) == sorted(["."] + [f"loss_all/{k}" for k in keys]),
+          f"event directories {sorted(files)}, want the loss keys {keys}")
+    for rel, paths in files.items():
+        check(len(paths) == 1, f"{rel}: event files {paths}")
+        events = read_events(paths[0])
+        check(events[0].get("file_version") == "brain.Event:2", f"{rel}: first record {events[0]}")
+        got = [(e["step"], v["tag"]) for e in events[1:] for v in e["summary"]]
+        if rel != ".":
+            check(got == [(i, "loss_all") for i in range(steps)], f"{rel}: records {got}")
+            continue
+        want = [(i, tag) for i in range(steps) for tag in ("image_show_0", "log/text_summary")]
+        check(got == want, f"main event file: records {got}, want {want}")
+        for e in events[1:]:
+            v = e["summary"][0]
+            if "image" in v:
+                img = np.asarray(Image.open(io.BytesIO(v["image"]["encoded_image_string"])))
+                drawn = writer.images[("image_show_0", e["step"])]
+                ref = (drawn if drawn.dtype == np.uint8
+                       else np.clip(drawn * 255.0, 0, 255).astype(np.uint8))
+                check(img.shape == ref.shape == (v["image"]["height"], v["image"]["width"],
+                                                  v["image"]["colorspace"])
+                      and np.array_equal(img, ref),
+                      f"image_show_0 at step {e['step']}: {img.shape} does not decode to the "
+                      f"Visualizer's grid {drawn.shape}")
+            else:
+                line = v["tensor"]["string_val"][0].decode()
+                check(line.startswith("00000000) ") and all(f"{k} - " in line for k in keys),
+                      f"log text at step {e['step']}: {line[:80]}")
+    return sum(os.path.getsize(p) for ps in files.values() for p in ps)
+
+
+def phase_video(card):
+    """The video datasets and --tensorboard on the card: the training CLI
+    in-process at full width over the same frames as .mp4 clips (cv2's
+    VideoWriter, avc1 where it encodes, else mp4v), as .gif clips and as a
+    PNG tree, with --tensorboard and a record every step; then mode m over
+    the .mp4 test split from the epoch file the .mp4 run wrote."""
+    import dataclasses
+    import math
+    import os
+    import tempfile
+    import cv2
+    import numpy as np
+    import torch
+    from facevae_tpu_torch import evaluate
+    from facevae_tpu_torch.data import image_io
+    from facevae_tpu_torch.ops import fast_warp
+    from facevae_tpu_torch.train import cli, loop
+    reg = cv2.videoio_registry
+    print(f"[video] cv2 {cv2.__version__}: backends "
+          f"{[reg.getBackendName(b) for b in reg.getBackends()]}, for files "
+          f"{[reg.getBackendName(b) for b in reg.getStreamBackends()]}; build: "
+          f"{[ln.strip() for ln in cv2.getBuildInformation().splitlines() if 'FFMPEG' in ln]}")
+    tmp = tempfile.TemporaryDirectory()
+    cwd = os.getcwd()
+    writers = []
+    saved = loop.SummaryWriter, cli.build_config
+
+    def every_step(args):          # neither CLI has a flag for vis_every
+        cfg = saved[1](args)
+        return dataclasses.replace(cfg, train=dataclasses.replace(cfg.train, vis_every=1))
+    loop.SummaryWriter, cli.build_config = _timed_writer(writers), every_step
+    try:
+        fourcc = None
+        for cc in ("avc1", "mp4v"):
+            probe = cv2.VideoWriter(f"{tmp.name}/probe_{cc}.mp4", cv2.VideoWriter_fourcc(*cc), 25,
+                                    (AUG_SIZE, AUG_SIZE))
+            ok = probe.isOpened()
+            probe.release()
+            print(f"[video] cv2's VideoWriter {cc} at {AUG_SIZE}x{AUG_SIZE}: "
+                  f"{'encodes' if ok else 'refused'}")
+            if ok:
+                fourcc = cc
+                break
+        check(fourcc is not None, "cv2 encodes neither avc1 nor mp4v")
+        t0 = time.perf_counter()
+        _video_trees(tmp.name, fourcc)
+        ids, clips, n = TRAIN_TREE
+        clip_names = [f"id{i}#clip{c}" for i in range(ids) for c in range(clips)]
+        read_ms = {}
+        for fmt, read in (("png", lambda p: np.stack([image_io.read_png(f"{p}/{f}")
+                                                      for f in sorted(os.listdir(p))])),
+                          ("mp4", image_io.read_mp4), ("gif", image_io.read_gif)):
+            paths = [f"{tmp.name}/{fmt}/train/{c}{'' if fmt == 'png' else '.' + fmt}"
+                     for c in clip_names]
+            read(paths[0])                 # the decoder's first call outside the timing
+            t1 = time.perf_counter()
+            videos = [read(p) for p in paths]
+            read_ms[fmt] = (time.perf_counter() - t1) * 1e3 / (len(clip_names) * n)
+            check(all(v.shape == (n, AUG_SIZE, AUG_SIZE, 3) and v.dtype == np.uint8
+                      for v in videos), f"{fmt}: read {[v.shape for v in videos]}")
+        sizes = {fmt: sum(os.path.getsize(os.path.join(d, f)) for d, _, fs
+                          in os.walk(f"{tmp.name}/{fmt}/train") for f in fs)
+                 for fmt in ("png", "mp4", "gif")}
+        print(f"[video] trees of {ids} identities x {clips} clips x {n} frames at "
+              f"{AUG_SIZE}x{AUG_SIZE} ({fourcc} .mp4, .gif, PNG; train/ bytes {sizes}) written "
+              f"in {time.perf_counter() - t0:.1f} s; the host's ms a frame to read them: "
+              f"read_mp4 {read_ms['mp4']:.2f}, read_gif {read_ms['gif']:.2f}, read_png "
+              f"{read_ms['png']:.2f}")
+        steps = ids * TRAIN_REPEATS // N_BATCH
+        total, runs = {}, {}
+        for fmt in ("png", "mp4", "gif"):
+            run_dir = f"{tmp.name}/run_{fmt}"
+            os.makedirs(run_dir)
+            os.chdir(run_dir)             # the CLI's writer makes ./runs
+            try:
+                state, records, counts = _train_cli([
+                    "--root_dir", f"{tmp.name}/{fmt}", "--batch_size", str(N_BATCH),
+                    "--num_repeats", str(TRAIN_REPEATS), "--num_epochs", "1", "--remat", "false",
+                    "--tensorboard", "true", "--ckp_dir", f"{run_dir}/ckp", "--vis_dir",
+                    f"{run_dir}/vis", "--log_file", f"{run_dir}/log.txt",
+                    "--checkpoint_freq", "1" if fmt == "mp4" else "1000"])
+            finally:
+                os.chdir(cwd)
+            del state
+            gc.collect()
+            torch.cuda.empty_cache()
+            want = _loop_counts(counts, "float32", steps, 2)
+            check(counts == want, f"{fmt} run: launches {counts}, want {want}")
+            for k, v in counts.items():
+                total[k] = total.get(k, 0) + v
+            (g_line, d_line), = _log_pairs(f"{run_dir}/log.txt")
+            keys = [c.split(" - ")[0] for line in (g_line, d_line)
+                    for c in line.split(") ", 1)[1].split("; ")]
+            writer = writers[-1]
+            nbytes = _check_events(run_dir, writer, steps, keys)
+            r = records[0]
+            runs[fmt] = {"ms_per_step": r["steps_s"] * 1e3 / steps,
+                         "frames_per_s": r["frames_per_s"], "wait_s": r["wait_s"],
+                         "event_bytes": nbytes,
+                         "tb_ms_per_record": {k: sum(v) / max(writer.records[k], 1)
+                                              for k, v in writer.ms.items()},
+                         "tb_records": dict(writer.records)}
+            per_record = {k: round(v, 3) for k, v in runs[fmt]["tb_ms_per_record"].items()}
+            print(f"[video] {fmt}: {card}: ModelConfig() fp32 batch {N_BATCH}, {steps} steps "
+                  f"with --tensorboard (a record every step): "
+                  f"{runs[fmt]['ms_per_step']:.1f} ms a step (the epoch's steps, the first's "
+                  f"warm-up and the per-step visualization inside), "
+                  f"{r['frames_per_s']:.3f} frames/s; waited {r['wait_s']:.3f} s on the "
+                  f"prefetch queue; launches {counts}; event files {nbytes} bytes, host ms a "
+                  f"record {json.dumps(per_record)} ({writer.records}); CRCs, tags, steps, "
+                  f"images and log lines checked")
+        for fmt in ("mp4", "gif"):
+            runs[fmt]["vs_png"] = runs[fmt]["ms_per_step"] / runs["png"]["ms_per_step"]
+
+        ckp, root = f"{tmp.name}/run_mp4/ckp", f"{tmp.name}/mp4"
+        argv = ["--ckp_dir", ckp, "--ckp", "0", "--source", "m", "--driving", root,
+                "--eval_batch", str(N_BATCH)]
+        fast_warp.reset_launch_counts()
+        out = _eval_main(argv)
+        torch.cuda.synchronize()
+        counts = dict(fast_warp.launches)
+        n_driven = EVAL_VIDEOS * (EVAL_FRAMES - 1)
+        batches = EVAL_VIDEOS * math.ceil((EVAL_FRAMES - 1) / N_BATCH)
+        want = {**dict.fromkeys(counts, 0), "warp_fwd": batches, "grid_fwd": batches}
+        check(out["frames"] == n_driven and out["videos"] == EVAL_VIDEOS
+              and all(math.isfinite(out[k]) for k in ("recon_l1", "recon_mse", "psnr_db")),
+              f"mode m over .mp4: {out}")
+        check(counts == want, f"mode m over .mp4: launches {counts}, want {want}")
+        for k, v in counts.items():
+            total[k] = total.get(k, 0) + v
+        pipe = evaluate.build_pipeline(evaluate.parse_args(argv))
+        evaluate.eval_metrics(pipe, root, AUG_SIZE, 0, 90, batch=N_BATCH)         # warm
+        t0 = time.perf_counter()
+        evaluate.eval_metrics(pipe, root, AUG_SIZE, 0, 90, batch=N_BATCH)
+        m_fps = n_driven / (time.perf_counter() - t0)
+        del pipe
+        print(f"[video] {card}: mode m over the .mp4 test split ({EVAL_VIDEOS} videos x "
+              f"{EVAL_FRAMES} frames, the mp4 run's epoch file): recon_l1 {out['recon_l1']}, "
+              f"psnr {out['psnr_db']} dB, launches {counts}; {m_fps:.2f} frames/s at batch "
+              f"{N_BATCH} (eval_metrics, second run, read_mp4 included)")
+        loaded = sorted(m for m in sys.modules if m.split(".")[0] in ("imageio", "tensorboardX")
+                        and sys.modules[m] is not None)
+        check(not loaded, f"imported by the run: {loaded}")
+    finally:
+        os.chdir(cwd)
+        loop.SummaryWriter, cli.build_config = saved
+        tmp.cleanup()
+    return total, {"fourcc": fourcc, "read_ms_per_frame": read_ms, "runs": runs,
+                   "m_frames_per_s_mp4": m_fps}
+
+
 def _dp_held(port, whole, world):
     """The JAX package's data-parallel invariant (tests/test_train_step.py:
     test_dp_vs_1dev_multistep): the ranks' steps against one process on the
@@ -2461,7 +2789,48 @@ def _variant_parity(variant):
                                           f"card vs CPU {err:.3e} > {tol:g} x {scale:.3e}")
                 worst = max(worst, (err / (tol * scale) if scale else 0.0,
                                     f"{'train' if train else 'eval'} output {i}, limit {tol:g}"))
+    if worst[0] > NEAR_LIMIT:
+        _layer_breakdown(variant, cpu, card, (x, x_a, kp), worst[1].startswith("train"))
     return worst
+
+
+def _layer_breakdown(variant, cpu, card, args, train):
+    """Where an EFE's card-vs-CPU error comes from: forward hooks on every
+    module of both copies keep each call's output; per module call the
+    relative error max|card - cpu| / max|cpu|.  Printed: the largest inside
+    the modules, the last module's (what the forward's own ops after it
+    read) and the output's (the forward's first output, the keypoints)."""
+    import torch
+    rec = {"cpu": [], "card": []}
+
+    def hook(side, name):
+        def keep(mod, inp, out):
+            y = out[0] if isinstance(out, (tuple, list)) else out
+            if torch.is_tensor(y):
+                rec[side].append((name or ".", type(mod).__name__, y.detach().double().cpu()))
+        return keep
+    handles = [m.register_forward_hook(hook(side, n))
+               for side, net in (("cpu", cpu), ("card", card)) for n, m in net.named_modules()]
+    try:
+        with torch.no_grad():
+            for net in (cpu, card):
+                dev = next(net.parameters()).device
+                net.train(train)(*(t.to(dev) for t in args))
+    finally:
+        for h in handles:
+            h.remove()
+    rows = []
+    for (name, kind, a), (_, _, b) in zip(rec["cpu"], rec["card"]):
+        scale = float(a.abs().max())
+        rows.append((name, kind, float((b - a).abs().max()) / scale if scale else 0.0))
+    *inside, (_, root, out) = rows          # the root module's hook fires last
+    top = max(inside, key=lambda r: r[2])
+    last = inside[-1]
+    print(f"[variants] {variant} {'train' if train else 'eval'} form, card vs CPU by module "
+          f"(max|card - cpu| / max|cpu|, {len(rows)} module calls): the largest inside the "
+          f"modules {top[0]} ({top[1]}) {top[2]:.2e}; the last module, {last[0]} ({last[1]}), "
+          f"{last[2]:.2e}; {root}'s output {out:.2e}, {out / max(last[2], 1e-30):.1f}x the last "
+          f"module's: its forward's own ops after that module")
 
 
 def _flat_outputs(out):
@@ -2636,6 +3005,7 @@ def _library_parity(card, device="cuda"):
     inputs and weights: outputs and the gradients the tests hold.  Returns
     {module: worst err / limit}."""
     import copy
+    import math
     import torch
     from facevae_tpu_torch.losses import contrastive_loss
     from facevae_tpu_torch.nn import fuse_wn, wn
@@ -2669,26 +3039,58 @@ def _library_parity(card, device="cuda"):
                         lambda x, grid, f=f, a=align, p=pad: f(x, grid, align_corners=a,
                                                                  padding_mode=p)),
                          (x, grid), (T["grid_fwd"], T["grid_grad"]))
+    by_function, near_pi = {}, {}
     for dtype in (torch.float32, torch.float64):
-        # rotations (and relative rotations) by 0.3 to 2.0 rad: near 0 and pi
-        # arccos and the quaternion's 1 / w amplify the card's and the CPU's
-        # one-ulp differences in sqrt, sin, cos past 1e-6 (at up to 2.8 rad
-        # and a relative angle near pi: 1.1e-6 and 2.6e-6)
-        r, r2 = (torch.nn.functional.normalize(torch.randn(64, 3, generator=g, dtype=dtype), dim=1)
-                 * (0.3 + 1.7 * torch.rand(64, 1, generator=g, dtype=dtype)) for _ in range(2))
+        # the CPU test's draw (tests/test_torch_rotations_heatmap.py _rvecs):
+        # randn(3) x U(0.05, 3) / sqrt(3) (angles mostly in (0, pi)), a zero
+        # vector and a tiny one; each function on the card gets the CPU's own
+        # inputs (its R, axis, angle and matrices), as the test hands JAX's
+        # to both sides, so only that function's own rounding shows
+        def rvecs():
+            r = (torch.randn(64, 3, generator=g, dtype=dtype)
+                 * (0.05 + 2.95 * torch.rand(64, 1, generator=g, dtype=dtype)) / math.sqrt(3.0))
+            r[0], r[1] = 0.0, 1e-9
+            return r
+        r, r2 = rvecs(), rvecs()
         q = torch.randn(64, 4, generator=g, dtype=dtype)
-
-        def rotations(r, r2, q):
-            R = rot.rodrigues(r)
-            axis, angle = rot.matrix_to_axisangle(R)
-            return (R, rot.quaternion_to_matrix(q), rot.matrix_to_quaternion(R), axis, angle,
-                    rot.axisangle_to_matrix(axis, angle),
-                    rot.rotation_interp(R, rot.rodrigues(r2) @ R, 0.3))
+        R, R2 = rot.rodrigues(r), rot.rodrigues(r2)
+        axis, angle = rot.matrix_to_axisangle(R)
+        alphas = (0.0, 0.3, 1.0, torch.linspace(0, 1, 64, dtype=dtype))
+        cases = {"rodrigues": (rot.rodrigues, (r,)),
+                 "quaternion_to_matrix": (rot.quaternion_to_matrix, (q,)),
+                 "matrix_to_quaternion": (rot.matrix_to_quaternion, (R,)),
+                 "matrix_to_axisangle": (rot.matrix_to_axisangle, (R,)),
+                 "axisangle_to_matrix": (rot.axisangle_to_matrix, (axis, angle))}
+        for i, a in enumerate(alphas):
+            cases[f"rotation_interp alpha {i}"] = (rot.rotation_interp, (R, R2, a))
         tol = T["rot"][str(dtype).split(".")[-1]]
-        cpu = rotations(r, r2, q)
-        on_card = rotations(r.to(device), r2.to(device), q.to(device))
-        worst["rotations"] = max(worst.get("rotations", 0.0), _held_card(
-            "rotations", [t.cpu() for t in on_card], [list(cpu)], (tol, tol), bad))
+        for what, m in (("R", R), ("R2 R^T", R2 @ R.transpose(-1, -2))):
+            theta = rot.matrix_to_axisangle(m.double())[1]
+            near_pi[f"{what} {str(dtype).split('.')[-1]}"] = float(math.pi - theta.max())
+        for what, (f, args) in cases.items():
+            cpu = f(*args)
+            on_card = f(*(a.to(device) if torch.is_tensor(a) else a for a in args))
+            cpu, on_card = ([t] if torch.is_tensor(t) else list(t) for t in (cpu, on_card))
+            ratio = _held_card(f"{what} {dtype}", [t.cpu() for t in on_card], [cpu], (tol, tol),
+                               bad)
+            worst["rotations"] = max(worst.get("rotations", 0.0), ratio)
+            by_function[f"{what} {str(dtype).split('.')[-1]}"] = round(ratio, 4)
+            if ratio > 1.0:
+                # where the miss is: the row and its rotation angle (of the
+                # matrix, or of the relative rotation R2 R^T for the interp)
+                err = torch.stack([(c.cpu() - t).abs().reshape(t.shape[0], -1).amax(1)
+                                   for c, t in zip(on_card, cpu)]).amax(0)
+                row = int(err.argmax())
+                src = R2 @ R.transpose(-1, -2) if what.startswith("rotation_interp") else R
+                theta = float(rot.matrix_to_axisangle(src.double())[1][row])
+                print(f"[library] {what} {dtype}: card vs CPU {ratio:.3f} x the limit at row "
+                      f"{row} (rotation angle {theta:.6f} rad, pi - angle "
+                      f"{math.pi - theta:.3e})")
+    print(f"[library] rotations, card vs CPU on the CPU's inputs, err/limit by function: "
+          f"{json.dumps(by_function)}; the draw's nearest approach to pi (pi - largest "
+          f"angle, of R and of the interpolation's relative rotation): "
+          f"{json.dumps({k: float(f'{v:.3e}') for k, v in near_pi.items()})}")
+    heat_inputs = []
     for name, dtype in (("float32", torch.float32), ("bfloat16", torch.bfloat16)):
         out = torch.randn(2, 5, 4, 6, 7, generator=g) * 3
         kp = torch.rand(2, 5, 2, generator=g) * 2 - 1
@@ -2700,6 +3102,9 @@ def _library_parity(card, device="cuda"):
         on_card = [t.float().cpu() for t in heat(out.to(dtype).to(device), kp.to(dtype).to(device))]
         worst["heatmaps"] = max(worst.get("heatmaps", 0.0), _held_card(
             "heatmaps", on_card, [cpu], (T["heat"][name],) * 2, bad))
+        heat_inputs.append((name, dtype, out, kp))
+    if worst["heatmaps"] > NEAR_LIMIT:
+        _heatmap_breakdown(heat_inputs, device)
     layer_inputs = {"LinearWN": (3, 7), "Conv2dWN": (2, 3, 9, 8), "ConvTranspose2dWN": (2, 4, 5, 4),
                     "Conv2dUB": (2, 3, 8, 6), "Conv2dWNUB": (2, 3, 8, 6),
                     "ConvTranspose2dUB": (2, 3, 5, 4), "ConvTranspose2dWNUB": (2, 3, 5, 4),
@@ -2745,6 +3150,47 @@ def _library_parity(card, device="cuda"):
                                [[b]], (T["net"], T["net"]), bad))
     check(not bad, "library card vs CPU: " + "; ".join(bad[:8]))
     return worst
+
+
+def _heatmap_breakdown(inputs, device):
+    """Where the channel-first heatmaps' card-vs-CPU error comes from: each
+    step of out2heatmap, heatmap2kp and kp2gaussian_2d (ops/heatmap.py's
+    steps, each from its own device's step before) on the card against
+    the CPU, as err / (tol x max|cpu|); and heatmap2kp's contraction
+    against float64: each side's error, and its sums' cancellation (the
+    largest sum |terms| over the largest |sum|)."""
+    import torch
+    from facevae_tpu_torch.ops.geometry import make_coordinate_grid_2d, make_coordinate_grid_3d
+
+    def steps(out, kp):
+        temperature = torch.tensor(0.1, dtype=out.dtype).item()
+        flat = out.reshape(out.shape[0], out.shape[1], -1) / temperature
+        e = torch.exp(flat - flat.amax(dim=2, keepdim=True))
+        total = e.sum(dim=2, keepdim=True)
+        grid = make_coordinate_grid_3d(out.shape[2:], dtype=out.dtype, device=out.device)
+        diff = (make_coordinate_grid_2d((9, 7), dtype=kp.dtype, device=kp.device)[None, None]
+                - kp[:, :, None, None, :])
+        sq = torch.sum(diff * diff, dim=-1)
+        return {"out / T": flat, "exp": e, "sum": total, "out2heatmap": e / total,
+                "heatmap2kp": torch.einsum("nkdhw,dhwc->nkc", out, grid),
+                "sum of squares": sq, "kp2gaussian_2d": torch.exp(-0.5 * sq / 0.01)}
+    for name, dtype, out, kp in inputs:
+        tol = LIBRARY_TOL["heat"][name]
+        cpu = steps(out.to(dtype), kp.to(dtype))
+        on_card = steps(out.to(dtype).to(device), kp.to(dtype).to(device))
+        ratios = {k: round(float((on_card[k].double().cpu() - a.double()).abs().max())
+                           / (tol * float(a.double().abs().max())), 4) for k, a in cpu.items()}
+        o = out.to(dtype).double()
+        terms = (o.reshape(*o.shape[:2], -1, 1)
+                 * make_coordinate_grid_3d(o.shape[2:], dtype=torch.float64).reshape(1, 1, -1, 3))
+        ref = terms.sum(2)
+        off = {side: float((d["heatmap2kp"].double().cpu() - ref).abs().max())
+               for side, d in (("CPU", cpu), ("card", on_card))}
+        print(f"[library] heatmaps {name}, each step card vs CPU, err / ({tol:g} x max|cpu|): "
+              f"{json.dumps(ratios)}; heatmap2kp against float64: CPU off by "
+              f"{off['CPU']:.3e}, card by {off['card']:.3e} (the limit {tol:g} x "
+              f"{float(ref.abs().max()):.3e}); cancellation "
+              f"{float(terms.abs().sum(2).max() / ref.abs().max()):.1f}")
 
 
 def _library_timings(card, device="cuda"):
@@ -3021,6 +3467,7 @@ def main(argv=None) -> int:
                          ("eval", lambda: phase_eval(card)),
                          ("train_bf16", lambda: _train(card, "bfloat16")),
                          ("train_loop", lambda: phase_train_loop(card)),
+                         ("video", lambda: phase_video(card)),
                          ("dp", lambda: phase_dp(card)), ("scan", lambda: phase_scan(card)),
                          ("remat", lambda: phase_remat(card)),
                          ("variants", lambda: phase_variants(card)),
@@ -3044,6 +3491,8 @@ def main(argv=None) -> int:
                 paths["eval"], eval_n1, eval_rates = out
             elif name == "train_loop":
                 paths["train_loop"], aug_rows, loop_rates = out
+            elif name == "video":
+                paths["video"], video_rates = out
             elif name == "dp":
                 dp_rates = out
             elif name == "scan":
@@ -3102,6 +3551,7 @@ def main(argv=None) -> int:
     print(json.dumps({"kernels": kernels}))
     print(f"[eval] {json.dumps({k: round(v, 3) for k, v in eval_rates.items()})}")
     print(f"[train_loop] {json.dumps(loop_rates)}")
+    print(f"[video] {json.dumps(video_rates)}")
     print(f"[dp] {json.dumps(dp_rates)}")
     print(f"[scan] {json.dumps(scan_rates)}")
     print(f"[remat] {json.dumps(remat_rows)}")

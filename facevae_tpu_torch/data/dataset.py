@@ -19,10 +19,11 @@ it: the port imports nothing of the JAX package).
   ``driving``), read with the csv module: rows whose two names are both
   videos of the split, in file order, as pandas' isin filter keeps them.
 
-PNG frames go through the port's own reader (data/image_io.read_png, PIL's
-decoder): the card's machine has no imageio, which the JAX package reads
-frames with.  Other frame formats and .mp4 / .gif videos go through imageio
-where it imports, and raise an ImportError that names it where it does not.
+Frames and videos go through the port's own readers (data/image_io.py):
+PNG frames through read_png, other frame files through read_image, .gif
+videos through read_gif (PIL's decoders, as imageio reads them), .mp4
+videos through read_mp4 (cv2's FFmpeg backend): the card's machine has no
+imageio, which the JAX package reads them with.
 """
 from __future__ import annotations
 
@@ -33,31 +34,14 @@ from typing import Optional
 
 import numpy as np
 
-from facevae_tpu_torch.data.image_io import PNG_SIGNATURE, read_png
-
-
-def _imageio(what: str):
-    try:
-        import imageio.v2 as imageio
-    except ImportError as e:
-        raise ImportError(f"reading {what} needs imageio, which is not installed; "
-                          "the port reads PNG frames without it") from e
-    return imageio
+from facevae_tpu_torch.data.image_io import (PNG_SIGNATURE, read_gif, read_image, read_mp4,
+                                             read_png, to_rgb)
 
 
 def _imread_raw(path: str) -> np.ndarray:
     with open(path, "rb") as fh:
         png = fh.read(len(PNG_SIGNATURE)) == PNG_SIGNATURE
-    return to_rgb(read_png(path) if png else np.asarray(_imageio(path).imread(path)))
-
-
-def to_rgb(img: np.ndarray) -> np.ndarray:
-    """A decoded image with grey stacked to 3 channels and alpha dropped."""
-    if img.ndim == 2:
-        img = np.stack([img] * 3, axis=-1)
-    if img.shape[-1] == 4:
-        img = img[..., :3]
-    return img
+    return to_rgb(read_png(path) if png else read_image(path))
 
 
 def _imread_float(path: str) -> np.ndarray:
@@ -73,10 +57,8 @@ def read_video(name: str, frame_shape=(256, 256, 3)) -> np.ndarray:
         frames = sorted(os.listdir(name))
         return np.stack([_imread_float(os.path.join(name, f)) for f in frames])
     if name.lower().endswith((".gif", ".mp4")):
-        video = to_rgb(np.asarray(_imageio(name).mimread(name, memtest=False)))
-        if video.dtype == np.uint8:
-            return video.astype(np.float32) / 255.0
-        return video.astype(np.float32)
+        video = read_gif(name) if name.lower().endswith(".gif") else read_mp4(name)
+        return video.astype(np.float32) / 255.0
     raise ValueError(f"Unknown file extension: {name}")
 
 

@@ -1,7 +1,10 @@
 """The port's image I/O: the card's machine has no imageio, through which
-facevae_tpu/data/dataset.py reads frames and the root evaluate.py writes
-gifs (imageio.mimsave).  PIL, cv2 and pandas import there (chip_smoke.py
-phase 1 prints them).
+facevae_tpu/data/dataset.py reads frames and videos and the root
+evaluate.py writes gifs (imageio.mimsave).  PIL and cv2 import there
+(chip_smoke.py phase 1 prints them).  Each reader returns what imageio.v2,
+through its pillow plugin, returns for the same file; imageio reads .mp4
+through imageio-ffmpeg, which neither machine has, so read_mp4 decodes
+through cv2's FFmpeg backend instead.
 
 - read_png: PNG decoded by PIL's C decoder, as imageio.v2.imread (which
   reads PNG through PIL itself) returns it: uint8 [H,W] (grey) or [H,W,C],
@@ -9,7 +12,23 @@ phase 1 prints them).
   chunks are walked first (CRC checked): 16-bit, grey below 8 bits and
   interlaced (Adam7) files raise ValueError naming the case.  PIL is
   needed: without it this module does not import.
-- write_png: 8-bit RGB, every row filter 0 (numpy and zlib).
+- read_image: any other image file PIL decodes (JPEG, BMP, TIFF, ...), its
+  first frame, as imageio.v2.imread returns it: PIL's array in the file's
+  own mode (grey [H,W], RGBA [H,W,4], 16-bit grey uint16), no EXIF
+  rotation; a palette converted to its palette's mode, as imageio's pillow
+  plugin does, but in a TIFF kept as its indices [H,W], as imageio's
+  tifffile plugin, which it prefers for TIFF, returns them.
+- read_gif: every frame of a GIF through PIL's ImageSequence, as
+  imageio.v2.mimread returns them (PIL composites each later frame onto
+  the canvas, disposal and frames smaller than the canvas included), each
+  through to_rgb: uint8 [T,H,W,3].  Under PIL's default loading strategy a
+  GIF with transparency gives an RGB first frame and RGBA later ones,
+  which the JAX package's read_video cannot stack; to_rgb per frame drops
+  the alpha.
+- read_mp4: every frame cv2's FFmpeg backend decodes, BGR converted to
+  RGB: uint8 [T,H,W,3].  Without that backend, or with no frame decoded,
+  it raises RuntimeError; there is no other decoder to fall back on.
+- write_png / encode_png: 8-bit RGB, every row filter 0 (numpy and zlib).
 - write_gif: GIF89a with one global 256-colour palette, 3-3-2 bits of
   R, G, B, each pixel mapped to its nearest colour (so every channel lands
   within half a palette step: 255/14 for R and G, 255/6 for B), LZW with
@@ -25,7 +44,7 @@ import zlib
 from typing import Sequence, Union
 
 import numpy as np
-from PIL import Image
+from PIL import Image, ImageSequence
 
 PNG_SIGNATURE = b"\x89PNG\r\n\x1a\n"
 _COLOUR_TYPES = (0, 2, 3, 4, 6)      # grey, RGB, palette, grey + alpha, RGBA
@@ -78,9 +97,64 @@ def read_png(source: Union[str, bytes, bytearray, memoryview]) -> np.ndarray:
         raise ValueError(f"{depth}-bit PNG of colour type {ctype} is not supported "
                          "(8-bit, or a 1/2/4-bit palette)")
     with Image.open(io.BytesIO(data)) as im:       # decoded before the file closes
-        if im.mode == "P":                          # imageio's conversion of a palette
-            im = im.convert(im.palette.mode)
-        return np.array(im)
+        return _as_imageio(im)
+
+
+def _as_imageio(im: Image.Image) -> np.ndarray:
+    """A PIL frame as imageio's pillow plugin hands it out: a palette image
+    converted to its palette's mode (RGB or RGBA), any other mode as it is."""
+    if im.mode == "P":
+        im = im.convert(im.palette.mode)
+    return np.array(im)
+
+
+def to_rgb(img: np.ndarray) -> np.ndarray:
+    """A decoded image with grey stacked to 3 channels and alpha dropped."""
+    if img.ndim == 2:
+        img = np.stack([img] * 3, axis=-1)
+    if img.shape[-1] == 4:
+        img = img[..., :3]
+    return img
+
+
+def read_image(path: str) -> np.ndarray:
+    """An image file other than PNG (its first frame) as imageio.v2.imread
+    returns it (the module's docstring says how)."""
+    with Image.open(path) as im:
+        return np.array(im) if im.format == "TIFF" else _as_imageio(im)
+
+
+def read_gif(path: str) -> np.ndarray:
+    """Every frame of a GIF, uint8 [T,H,W,3] (the module's docstring says
+    how)."""
+    with Image.open(path) as im:
+        if im.format != "GIF":
+            raise ValueError(f"{path} is not a GIF (PIL reads it as {im.format})")
+        return np.stack([to_rgb(_as_imageio(frame)) for frame in ImageSequence.Iterator(im)])
+
+
+def read_mp4(path: str) -> np.ndarray:
+    """Every frame of an .mp4 through cv2's FFmpeg backend, uint8 [T,H,W,3]
+    RGB (the module's docstring says how)."""
+    import cv2
+    if cv2.CAP_FFMPEG not in cv2.videoio_registry.getStreamBackends():
+        raise RuntimeError(f"reading {path} needs cv2's FFmpeg video backend, which this cv2 "
+                           f"{cv2.__version__} lacks")
+    cap = cv2.VideoCapture(path, cv2.CAP_FFMPEG)
+    frames = []
+    try:
+        if not cap.isOpened():
+            raise RuntimeError(f"cv2's FFmpeg backend cannot open {path}")
+        while True:
+            ok, frame = cap.read()
+            if not ok:
+                break
+            frames.append(cv2.cvtColor(frame, cv2.COLOR_BGR2RGB))
+    finally:
+        cap.release()
+    if not frames:
+        raise RuntimeError(f"cv2's FFmpeg backend decoded no frame of {path}")
+    return np.stack(frames)
 
 
 def _chunk(kind: bytes, payload: bytes) -> bytes:
@@ -88,15 +162,20 @@ def _chunk(kind: bytes, payload: bytes) -> bytes:
             + struct.pack(">I", zlib.crc32(kind + payload)))
 
 
-def write_png(path: str, img: np.ndarray) -> None:
-    """Write uint8 RGB [H,W,3] as an 8-bit RGB PNG (filter 0)."""
+def encode_png(img: np.ndarray) -> bytes:
+    """uint8 RGB [H,W,3] as the bytes of an 8-bit RGB PNG (filter 0)."""
     img = np.asarray(img)
     if img.dtype != np.uint8 or img.ndim != 3 or img.shape[2] != 3:
         raise ValueError(f"write_png takes uint8 [H,W,3], got {img.dtype} {img.shape}")
     h, w, _ = img.shape
     raw = np.concatenate([np.zeros((h, 1), np.uint8), img.reshape(h, w * 3)], axis=1)
-    data = (PNG_SIGNATURE + _chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8, 2, 0, 0, 0))
+    return (PNG_SIGNATURE + _chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8, 2, 0, 0, 0))
             + _chunk(b"IDAT", zlib.compress(raw.tobytes(), 6)) + _chunk(b"IEND", b""))
+
+
+def write_png(path: str, img: np.ndarray) -> None:
+    """Write uint8 RGB [H,W,3] as an 8-bit RGB PNG (filter 0)."""
+    data = encode_png(img)
     with open(path, "wb") as fh:
         fh.write(data)
 

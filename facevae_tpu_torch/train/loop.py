@@ -19,7 +19,10 @@ thread never waits on the card inside an epoch:
     to the host each step, logger.py:173); its queue is bounded, which also
     bounds how far the host runs ahead of the card;
   - the log line, the visualization and the checkpoint are written at epoch
-    boundaries only, the checkpoint by a background thread.
+    boundaries only, the checkpoint by a background thread; with
+    TrainConfig.tensorboard, the losses, the visualization and the log line
+    every vis_every steps through train/tensorboard.py (tensorboardX's
+    files, without tensorboardX), closed when the loop ends.
 
 Each step's draws (augmentation, TPS, VAE eps) come from one
 torch.Generator on the card reseeded with train/step.py:step_seed(seed,
@@ -49,6 +52,7 @@ from facevae_tpu_torch.train.checkpoint import AsyncCheckpointer, save_checkpoin
 from facevae_tpu_torch.train.logger import ScalarLog, Visualizer, save_visualization
 from facevae_tpu_torch.train.state import TrainState
 from facevae_tpu_torch.train.step import step_seed, train_step
+from facevae_tpu_torch.train.tensorboard import SummaryWriter
 
 _PROFILE_START = 10      # --profile_dir traces steps 10-14 (scan mode: the second call)
 _PROFILE_STEPS = 5
@@ -319,8 +323,8 @@ def train_loop(cfg: Config, state: TrainState, loader, start_epoch: int = 0,
     if cfg.train.debug_nans:
         # reference parity: torch.autograd.set_detect_anomaly(True) (distributed.py:26)
         torch.autograd.set_detect_anomaly(True)
-    if cfg.train.tensorboard and writer is None and is_master():
-        from tensorboardX import SummaryWriter
+    own_writer = cfg.train.tensorboard and writer is None and is_master()
+    if own_writer:
         writer = SummaryWriter(comment="facevae_tpu_torch")
 
     generator = torch.Generator(device=device)
@@ -428,6 +432,8 @@ def train_loop(cfg: Config, state: TrainState, loader, start_epoch: int = 0,
     finally:
         metrics_buf.close()
         scalar_log.close()
+        if own_writer:
+            writer.close()
     checkpointer.wait()
     if scan is not None and records:
         records[-1]["scan"] = dict(scan.stats, eager_steps=scan.eager_steps,
