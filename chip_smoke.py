@@ -96,6 +96,32 @@ Phases, each fatal on failure (exit code 1, no result line):
               into a fresh one: one step of each under
               torch.use_deterministic_algorithms(True), with the same TPS
               draw, gives the same losses and the same state bit for bit.
+     reference  the reference's own PyTorch weights with no JAX: both
+              converters (python -m facevae_tpu_torch.convert_reference_checkpoint,
+              python -m facevae_tpu_torch.convert_torch_weights) run as a user
+              runs them, each in a fresh process whose -X importtime list
+              holds no jax, jaxlib, flax or facevae_tpu (nor does the
+              smoke's own process).  (a) A reference checkpoint
+              (.pth.tar) at ModelConfig(), fp32, in the JAX package's
+              creation order of tests/data/torch_reference_order.json with
+              the reference's leaf names (weight_orig / weight_u / weight_v,
+              running statistics, num_batches_tracked) and seeded values
+              (reference_state_dict), converted with --device cuda and
+              --device cpu: seconds and bytes in and out; the seven nets
+              of the two epoch files bit for bit; mode m at --eval_batch 8
+              from the card's file (finite, kernels 1 and 4 once a drive
+              batch, frames/s on a second run); a drive batch of 8 from that
+              file on the card against the CPU within REF_TOL of max|ref|.
+              (b) The tiny golden's reference state dicts
+              (tests/data/torch_reference_tiny.npz) through a .pth.tar,
+              ported on the card: every leaf of the seven nets bit for bit
+              the JAX package's conversion stored beside them.  (c) Seeded
+              torchvision VGG19 features.N, vgg_face_dag and Hopenet state
+              dicts at their real shapes (teacher_state_dicts) converted,
+              loaded by create_train_state(pretrained_dir=...): each
+              teacher tensor equal to its source; one fp32 step at batch 8
+              from that state (remat off): losses finite, the step's
+              launches.
      eval     the evaluation CLI, facevae_tpu_torch.evaluate.main, on the
               card: a seeded ModelConfig() state saved as an epoch file, a
               PNG tree (the port's writer) of 2 test videos x 17 frames at
@@ -253,9 +279,9 @@ Phases, each fatal on failure (exit code 1, no result line):
               (probe 7: volT's permuted view; probe 8: its fp32 source made
               from rows3 inside the timed call).
 Then a JSON line of kernel results (``launches_by_path`` per main path,
-``eval``, ``train_loop``, ``video``, ``remat``, ``variants`` and the graph
+``reference``, ``eval``, ``train_loop``, ``video``, ``remat``, ``variants`` and the graph
 path's ``scan_float32`` / ``scan_bfloat16`` included; kernels 1 and 4 also
-``eval_n1``, kernel 1 also ``aug``), the eval rates, the training loop's
+``eval_n1``, kernel 1 also ``aug``), the reference phase's figures, the eval rates, the training loop's
 rates, the video phase's, the dp, scan, remat, variants and library
 figures, the card's name and power limit, and the last line
 {"ok": true, "device": {...}}.  There is no CPU fallback: without a CUDA
@@ -407,6 +433,23 @@ LIBRARY_ROTATIONS, LIBRARY_SEED = 4096, 15
 # comes from (phase variants: each module of the EFE; phase library: each
 # step of the channel-first heatmaps)
 NEAR_LIMIT = 0.8
+
+
+# the reference phase: the JAX package's eager creation order of the seven
+# nets and the tiny golden of its order-zip (tests/make_torch_reference_golden.py),
+# the seeds and epoch of the files it writes, the card-vs-CPU limit on the frames of one
+# converted file (of max|ref|: the serving golden's, GOLDEN_TOL) and the
+# packages no process of the phase may import
+REF_ORDER = ROOT / "tests" / "data" / "torch_reference_order.json"
+REF_GOLDEN = ROOT / "tests" / "data" / "torch_reference_tiny.npz"
+REF_SEED, REF_EPOCH = 23, 44
+REF_TOL = GOLDEN_TOL
+NO_JAX = ("jax", "jaxlib", "flax", "facevae_tpu")
+# torchvision's VGG19 and the Oxford VGG-Face-16 conv stacks ("M": a max-pool)
+VGG19_CFG = (64, 64, "M", 128, 128, "M", 256, 256, 256, 256, "M",
+             512, 512, 512, 512, "M", 512, 512, 512, 512, "M")
+VGG16_CFG = (64, 64, "M", 128, 128, "M", 256, 256, 256, "M", 512, 512, 512, "M",
+             512, 512, 512, "M")
 
 
 BENCH_MS = {}                     # phases 7-8's median step ms by dtype, for phase scan
@@ -901,18 +944,137 @@ def numpy_weights(nets, seed):
         for key in sd:
             stem, leaf = key.rpartition(".")[::2]
             if leaf == "weight_u":
-                w = vals[f"{stem}.weight"].reshape(sd[key].shape[0], -1)
-                u = rs.randn(w.shape[0])
-                for _ in range(20):
-                    v = w.T @ u
-                    v /= np.linalg.norm(v)
-                    u = w @ v
-                    u /= np.linalg.norm(u)
-                vals[key], vals[f"{stem}.weight_v"] = u, v
+                vals[key], vals[f"{stem}.weight_v"] = _power_iteration(
+                    rs, vals[f"{stem}.weight"], steps=20)
         with torch.no_grad():
             for key, t in sd.items():
                 t.copy_(torch.from_numpy(np.asarray(vals[key], np.float32)))
     return nets
+
+
+def _draw(rs, leaf, shape):
+    """Seeded values of one reference leaf, from numpy's RandomState, on a
+    grid of 32 levels (the goldens compress): conv and linear weights in
+    [-2 s, 2 s) for s the power of two nearest 1/sqrt(fan_in) / 1.155
+    (a forward stays finite), norm scales and running variances 1 + [-1/8,
+    1/8), biases and running means [-1/8, 1/8); num_batches_tracked a count."""
+    import math
+    import numpy as np
+
+    def grid(scale):
+        return (rs.randint(-16, 16, size=shape) * (scale / 8)).astype(np.float32)
+
+    if leaf == "num_batches_tracked":
+        return np.asarray(rs.randint(1, 10 ** 6), np.int64)
+    if leaf in ("weight", "weight_orig") and len(shape) >= 2:
+        fan_in = math.prod(shape[1:])
+        return grid(2.0 ** -round(math.log2(1.155 * math.sqrt(fan_in))))
+    if leaf in ("weight", "running_var"):
+        return 1 + grid(1 / 16)
+    return grid(1 / 16)
+
+
+def _power_iteration(rs, w, steps=10):
+    """Spectral norm's u, v for weight ``w`` [O, ...] (torch's (I, K...)
+    flattening of v): ``steps`` power iterations in float64 from a random
+    u, rounded to fp32."""
+    import numpy as np
+    w = w.reshape(w.shape[0], -1).astype(np.float64)
+    u = rs.randn(w.shape[0])
+    for _ in range(steps):
+        v = w.T @ u
+        v /= np.linalg.norm(v)
+        u = w @ v
+        u /= np.linalg.norm(u)
+    return u.astype(np.float32), v.astype(np.float32)
+
+
+def reference_state_dict(order, seed):
+    """A seeded state dict in the reference's layout for one net's creation
+    order (a net of tests/data/torch_reference_order.json): torch's leaf
+    names and layouts, keys layers.<i>.<leaf> (names neither package uses:
+    the order-zip goes by order alone), spectral norm's weight_orig /
+    weight_u / weight_v in torch.nn.utils.spectral_norm's order (u, v from
+    power iterations on weight_orig), BatchNorm's running_mean / running_var
+    / num_batches_tracked; values from _draw."""
+    import numpy as np
+    rs = np.random.RandomState(seed)
+    sd = {}
+    for i, row in enumerate(order):
+        mod, leaves = f"layers.{i}", row["leaves"]
+        if "kernel" in leaves:                  # flax HWIO / DHWIO / (in, out) -> torch
+            k = leaves["kernel"]
+            w = [k[1], k[0]] if len(k) == 2 else [k[-1], k[-2]] + k[:-2]
+            if "spectral" in row:
+                if "bias" in leaves:
+                    sd[f"{mod}.bias"] = _draw(rs, "bias", leaves["bias"])
+                sd[f"{mod}.weight_orig"] = _draw(rs, "weight_orig", w)
+                sd[f"{mod}.weight_u"], sd[f"{mod}.weight_v"] = _power_iteration(
+                    rs, sd[f"{mod}.weight_orig"])
+                continue
+            sd[f"{mod}.weight"] = _draw(rs, "weight", w)
+        elif "weight" in leaves:                # the ELR layers: torch's layout already
+            sd[f"{mod}.weight"] = _draw(rs, "weight", leaves["weight"])
+        elif "scale" in leaves:
+            sd[f"{mod}.weight"] = _draw(rs, "weight", leaves["scale"])
+        if "bias" in leaves:
+            sd[f"{mod}.bias"] = _draw(rs, "bias", leaves["bias"])
+        if "bn_mean" in leaves:
+            for leaf, flax in (("running_mean", "bn_mean"), ("running_var", "bn_var"),
+                               ("num_batches_tracked", None)):
+                sd[f"{mod}.{leaf}"] = _draw(rs, leaf, leaves[flax] if flax else ())
+    return sd
+
+
+def teacher_state_dicts(seed):
+    """Seeded state dicts of the three teachers in their downloads' layouts
+    and shapes: torchvision's VGG19 ``features.N`` (its 16 convs), the
+    Oxford vgg_face_dag's 13 convs ``convX_Y``, and the reference's Hopenet
+    (a torchvision ResNet50 trunk, fc_yaw / fc_pitch / fc_roll and the
+    vestigial fc_finetune); the VGG classifiers (fc6-8), which no converter
+    reads, left out.  Values from _draw."""
+    import numpy as np
+    rs = np.random.RandomState(seed)
+    shapes = {"vgg19": [], "vggface": [], "hopenet": []}
+    cin, idx = 3, 0
+    for v in VGG19_CFG:
+        if v != "M":
+            shapes["vgg19"] += [(f"features.{idx}.weight", (v, cin, 3, 3)),
+                                (f"features.{idx}.bias", (v,))]
+            cin, idx = v, idx + 1
+        idx += 1
+    cin, block, conv = 3, 1, 1
+    for v in VGG16_CFG:
+        if v == "M":
+            block, conv = block + 1, 1
+            continue
+        shapes["vggface"] += [(f"conv{block}_{conv}.weight", (v, cin, 3, 3)),
+                              (f"conv{block}_{conv}.bias", (v,))]
+        cin, conv = v, conv + 1
+
+    def bn(name, c):
+        return [(f"{name}.{leaf}", () if leaf == "num_batches_tracked" else (c,))
+                for leaf in ("weight", "bias", "running_mean", "running_var",
+                             "num_batches_tracked")]
+
+    hop = [("conv1.weight", (64, 3, 7, 7))] + bn("bn1", 64)
+    inplanes = 64
+    for li, (planes, blocks) in enumerate(zip((64, 128, 256, 512), (3, 4, 6, 3))):
+        for b in range(blocks):
+            p = f"layer{li + 1}.{b}"
+            for c, (cout, cin_, k) in enumerate(((planes, inplanes, 1), (planes, planes, 3),
+                                                 (planes * 4, planes, 1)), 1):
+                hop += [(f"{p}.conv{c}.weight", (cout, cin_, k, k))] + bn(f"{p}.bn{c}", cout)
+            if b == 0:
+                hop += ([(f"{p}.downsample.0.weight", (planes * 4, inplanes, 1, 1))]
+                        + bn(f"{p}.downsample.1", planes * 4))
+            inplanes = planes * 4
+    for head, out in (("fc_yaw", 66), ("fc_pitch", 66), ("fc_roll", 66), ("fc_finetune", 3)):
+        fan_in = 2048 + (3 if head == "fc_finetune" else 0)
+        hop += [(f"{head}.weight", (out, fan_in)), (f"{head}.bias", (out,))]
+    shapes["hopenet"] = hop
+    return {t: {k: _draw(rs, k.rsplit(".", 1)[1], shape) for k, shape in rows}
+            for t, rows in shapes.items()}
 
 
 def tiny_step_inputs(seed=0):
@@ -1257,6 +1419,271 @@ def phase_checkpoint(card):
           f"{len(diff)} differ; states after the step differ at {len(bad)} tensors")
     check(not diff and not bad, f"resumed step differs: losses {diff}, state {bad[:8]}")
     return {"bytes": nbytes, "save_s": save_s, "load_s": load_s}
+
+
+def _imported(stderr):
+    """The top-level packages a ``python -X importtime`` run imported, from
+    its stderr."""
+    return {line.rsplit("|", 1)[1].strip().split(".")[0] for line in stderr.splitlines()
+            if line.startswith("import time:") and "|" in line}
+
+
+def _run_module(module, args, what):
+    """``python -m module args`` in a fresh process from the checkout, as a
+    user runs it (with -X importtime, which lists every module the process
+    imports, lazily imported ones included): its seconds; fails on an exit
+    code other than 0 and on an import of JAX, flax or the JAX package."""
+    t0 = time.perf_counter()
+    r = subprocess.run([sys.executable, "-X", "importtime", "-m", module, *args], cwd=ROOT,
+                       capture_output=True, text=True, timeout=900)
+    seconds = time.perf_counter() - t0
+    check(r.returncode == 0, f"{what}: exit code {r.returncode}: {r.stderr[-3000:]}")
+    imported = _imported(r.stderr)
+    check(len(imported) > 10 and "torch" in imported,
+          f"{what}: -X importtime listed {sorted(imported)[:20]}")
+    bad = sorted(imported & set(NO_JAX))
+    check(not bad, f"{what} imported {bad}")
+    for line in r.stdout.splitlines():
+        print(f"[reference]   {what}: {line}")
+    return seconds
+
+
+def _same_nets(a, b, device=None):
+    """The state-dict keys where two {net: state dict} differ (dtype or
+    bits; with ``device``, also a tensor of ``a`` not on it)."""
+    import torch
+    bad = []
+    for n in a:
+        if list(a[n]) != list(b[n]):
+            bad.append(f"{n}: keys")
+            continue
+        bad += [f"{n}.{k}" for k, v in a[n].items()
+                if v.dtype != b[n][k].dtype or not torch.equal(v.cpu(), b[n][k].cpu())
+                or (device is not None and v.device.type != device)]
+    return bad
+
+
+def phase_reference(card):
+    """The reference's own PyTorch weights on the card with no JAX: the two
+    converters run as a user runs them; (a) a reference checkpoint at
+    ModelConfig() converted on the card and on the CPU (the same bits), mode
+    m from the card's file, and the card's frames against the CPU's from the
+    same file; (b) the tiny golden's reference state dicts ported on the
+    card, leaf for leaf the JAX package's conversion; (c) the three
+    teachers at their real shapes converted, loaded through pretrained_dir
+    equal to their sources, and one fp32 training step from them.  No
+    process of the phase imports JAX, flax or the JAX package."""
+    import importlib.util
+    import tempfile
+    with tempfile.TemporaryDirectory() as d:
+        counts, rates = _reference_checkpoint(card, Path(d))
+    with tempfile.TemporaryDirectory() as d:
+        _reference_tiny(Path(d))
+    with tempfile.TemporaryDirectory() as d:
+        step_counts, rates["teachers_convert_s"] = _reference_teachers(Path(d))
+    imported = sorted(m for m in sys.modules if m.split(".")[0] in NO_JAX)
+    found = {}
+    for name in NO_JAX:                 # looked up, not imported
+        spec = importlib.util.find_spec(name)
+        found[name] = "not installed" if spec is None else (
+            spec.origin or f"namespace {list(spec.submodule_search_locations or [])}")
+    print(f"[reference] JAX, flax and the JAX package here: {json.dumps(found)}; imported by "
+          f"this process: {imported or 'none'}")
+    check(not imported, f"the smoke's process imported {imported}")
+    return {k: counts[k] + step_counts[k] for k in counts}, rates
+
+
+def _reference_checkpoint(card, d):
+    """Phase reference (a) in directory ``d``: (mode m's launches, figures)."""
+    import math
+    import numpy as np
+    import torch
+    from facevae_tpu_torch import convert, evaluate
+    from facevae_tpu_torch.config import Config
+    from facevae_tpu_torch.convert_reference_checkpoint import MODELS
+    from facevae_tpu_torch.data import FramesDataset
+    from facevae_tpu_torch.data.synthetic import write_dataset
+    from facevae_tpu_torch.ops import fast_warp
+    from facevae_tpu_torch.train import checkpoint
+    size = Config().model.image_size
+    order = json.loads(REF_ORDER.read_text())["ModelConfig"]
+    rates = {}
+    t0 = time.perf_counter()
+    ckp = {n: {k: torch.from_numpy(v) for k, v in
+               reference_state_dict(order[n], REF_SEED + i).items()}
+           for i, n in enumerate(MODELS)}
+    n_arrays = sum(len(ckp[n]) for n in MODELS)
+    n_values = sum(v.numel() for n in MODELS for v in ckp[n].values())
+    src = d / f"{REF_EPOCH:08d}-checkpoint.pth.tar"
+    torch.save({**ckp, "epoch": REF_EPOCH}, src)
+    del ckp
+    print(f"[reference] a reference checkpoint at ModelConfig() in the JAX creation order "
+          f"(tests/data/torch_reference_order.json): {n_arrays} arrays, {n_values} values, "
+          f"{src.stat().st_size} bytes, written in {time.perf_counter() - t0:.1f} s")
+    for dev in ("cuda", "cpu"):
+        rates[f"convert_s_{dev}"] = _run_module(
+            "facevae_tpu_torch.convert_reference_checkpoint",
+            ["--torch_ckp", str(src), "--out_dir", str(d / f"ckp_{dev}"),
+             "--epoch", str(REF_EPOCH), "--device", dev],
+            f"convert_reference_checkpoint --device {dev}")
+    rates["bytes_in"] = src.stat().st_size
+    rates["bytes_out"] = Path(checkpoint.checkpoint_path(str(d / "ckp_cuda"),
+                                                         REF_EPOCH)).stat().st_size
+    print(f"[reference] {card}: convert_reference_checkpoint at ModelConfig(), --device "
+          f"cuda {rates['convert_s_cuda']:.1f} s, --device cpu "
+          f"{rates['convert_s_cpu']:.1f} s (each a fresh process: torch's import, the train "
+          f"state, the torch.load, the zip and the epoch file's write); {rates['bytes_in']} "
+          f"bytes in, {rates['bytes_out']} bytes out (the whole train state: teachers, head "
+          f"and fresh Adam states included)")
+    nets = {}
+    for dev in ("cuda", "cpu"):
+        tree = checkpoint.read_checkpoint(str(d / f"ckp_{dev}"), REF_EPOCH)
+        check(int(tree["epoch"]) == REF_EPOCH and int(tree["step"]) == 0,
+              f"--device {dev}: epoch {tree['epoch']}, step {tree['step']}")
+        nets[dev] = {n: {k: torch.from_numpy(v) for k, v in convert.state_dict_from_jax(
+            convert.net_variables(tree, n)).items()} for n in MODELS}
+        del tree
+    bad = _same_nets(nets["cuda"], nets["cpu"])
+    print(f"[reference] the seven nets converted with --device cuda vs --device cpu: "
+          f"{sum(len(v) for v in nets['cpu'].values())} leaves, {len(bad)} differ in bits "
+          f"or dtype")
+    check(not bad, f"the two conversions differ at {bad[:8]}")
+    del nets
+
+    root = write_dataset(str(d / "data"), size, EVAL_VIDEOS, EVAL_FRAMES)
+    argv = ["--ckp_dir", str(d / "ckp_cuda"), "--ckp", str(REF_EPOCH), "--source", "m",
+            "--driving", root, "--eval_batch", str(N_BATCH), "--device", "cuda"]
+    fast_warp.reset_launch_counts()
+    out = _eval_main(argv)
+    torch.cuda.synchronize()
+    counts = dict(fast_warp.launches)
+    n_driven = EVAL_VIDEOS * (EVAL_FRAMES - 1)
+    batches = EVAL_VIDEOS * math.ceil((EVAL_FRAMES - 1) / N_BATCH)
+    check(out["frames"] == n_driven and out["videos"] == EVAL_VIDEOS
+          and all(math.isfinite(out[k]) for k in ("recon_l1", "recon_mse", "psnr_db")),
+          f"mode m from the converted file: {out}")
+    want = {**dict.fromkeys(counts, 0), "warp_fwd": batches, "grid_fwd": batches}
+    check(counts == want, f"mode m launches {counts}, want {want}")
+    pipe = evaluate.build_pipeline(evaluate.parse_args(argv))
+    evaluate.eval_metrics(pipe, root, size, 0, 90, batch=N_BATCH)        # warm
+    t0 = time.perf_counter()
+    evaluate.eval_metrics(pipe, root, size, 0, 90, batch=N_BATCH)
+    rates["m_frames_per_s"] = n_driven / (time.perf_counter() - t0)
+    print(f"[reference] {card}: mode m from the converted file, {out['frames']} frames in "
+          f"{batches} drive batches of {N_BATCH}: recon_l1 {out['recon_l1']}, psnr "
+          f"{out['psnr_db']} dB; {rates['m_frames_per_s']:.2f} frames/s (eval_metrics, second "
+          f"run, PNG reads included); launches {counts}")
+    video = np.asarray(FramesDataset(root, frame_shape=(size, size, 3),
+                                     is_train=False)[0], np.float32)[:N_BATCH + 1]
+    frames = {}
+    for dev, p in (("cuda", pipe), ("cpu", evaluate.build_pipeline(
+            evaluate.parse_args(argv[:-1] + ["cpu"])))):
+        with torch.no_grad():
+            enc = p.encode_source(torch.from_numpy(video[:1]).to(dev))
+            frames[dev] = p.drive_batch(*enc, torch.from_numpy(video[1:]).to(dev)).cpu()
+    err = (frames["cuda"] - frames["cpu"]).abs().max().item()
+    scale = frames["cpu"].abs().max().item()
+    finite = bool(torch.isfinite(frames["cuda"]).all())
+    print(f"[reference] the frames from the file with --device cuda vs --device cpu (a "
+          f"drive batch of {N_BATCH}, {tuple(frames['cpu'].shape)}): max|err| {err:.3e} "
+          f"(limit {REF_TOL * scale:.3e}, max|ref| {scale:.3f}), finite {finite}")
+    check(finite and frames["cuda"].shape == frames["cpu"].shape
+          and err <= REF_TOL * scale, f"frames with --device cuda vs cpu: {err:.3e}")
+    return counts, rates
+
+
+def _reference_tiny(d):
+    """Phase reference (b): the tiny golden's reference state dicts through a
+    .pth.tar in ``d``, ported onto tiny_config nets on the card, leaf for
+    leaf (bits, dtype, device) the JAX package's conversion stored beside
+    them, bridged by convert.load_jax_variables."""
+    import copy
+    import numpy as np
+    import torch
+    from facevae_tpu_torch import convert
+    from facevae_tpu_torch.config import tiny_config
+    from facevae_tpu_torch.convert_reference_checkpoint import MODELS
+    from facevae_tpu_torch.models import build_models
+    from facevae_tpu_torch.utils_port import port_reference_state_dict
+    with np.load(REF_GOLDEN) as data:
+        flat = {k: data[k] for k in data.files}
+
+    def part(kind, n):
+        return {k[len(f"{kind}/{n}/"):]: v for k, v in flat.items()
+                if k.startswith(f"{kind}/{n}/")}
+
+    torch.save({n: {k: torch.from_numpy(v) for k, v in part("ref", n).items()}
+                for n in MODELS}, d / "tiny.pth.tar")
+    ckp = torch.load(d / "tiny.pth.tar", map_location="cpu")
+    nets = build_models(tiny_config().model, device="cuda",
+                        generator=torch.Generator(device="cuda").manual_seed(0),
+                        names=MODELS)
+    got, want = {}, {}
+    for n in MODELS:
+        got[n] = port_reference_state_dict({k: v.numpy() for k, v in ckp[n].items()}, nets[n])
+        want[n] = convert.load_jax_variables(
+            copy.deepcopy(nets[n]), convert.nested_from_flat(part("jax", n))).state_dict()
+    bad = _same_nets(got, want, device="cuda")
+    print(f"[reference] the tiny golden (tests/data/torch_reference_tiny.npz) ported on "
+          f"cuda: {sum(len(v) for v in got.values())} leaves of the seven nets against the "
+          f"JAX package's conversion, {len(bad)} differ")
+    check(not bad, f"the tiny golden differs on cuda at {bad[:8]}")
+
+
+def _reference_teachers(d):
+    """Phase reference (c) in ``d``: the three teachers at their real shapes
+    through convert_torch_weights, loaded with create_train_state(...,
+    pretrained_dir=...) on the card and held to their sources, then one
+    fp32 training step at batch N_BATCH (remat off, as phase 7): (its
+    launches, the converter's seconds)."""
+    import math
+    import re
+    import torch
+    from facevae_tpu_torch.config import Config, LossConfig
+    from facevae_tpu_torch.convert_torch_weights import VGG19_IDX, VGGFACE_NAMES
+    from facevae_tpu_torch.ops import fast_warp
+    from facevae_tpu_torch.train import create_train_state, train_step
+    sds = teacher_state_dicts(REF_SEED)
+    args = []
+    for t, sd in sds.items():
+        torch.save({k: torch.from_numpy(v) for k, v in sd.items()}, d / f"{t}.pth")
+        args += [f"--{t}", str(d / f"{t}.pth")]
+    seconds = _run_module("facevae_tpu_torch.convert_torch_weights",
+                          args + ["--out", str(d / "teachers")], "convert_torch_weights")
+    cfg = _no_remat(Config(loss=LossConfig(pretrained_dir=str(d / "teachers"))))
+    state = create_train_state(cfg, "cuda")
+    vgg = {"vgg19": {f"conv{bi + 1}_{ci + 1}": f"features.{i}" for (bi, ci), i in VGG19_IDX.items()},
+           "vggface": {f"conv{bi + 1}_{ci + 1}": name for (bi, ci), name in VGGFACE_NAMES.items()}}
+    own = {t: getattr(state.nets["perceptual"], t).state_dict() for t in vgg}
+    own["hopenet"] = state.nets["hopenet"].state_dict()
+    pairs = [(t, f"{dst}.{leaf}", f"{src}.{leaf}") for t, m in vgg.items()
+             for dst, src in m.items() for leaf in ("weight", "bias")]
+    pairs += [("hopenet", re.sub(r"^layer(\d)\.(\d+)\.", r"layer\1_\2.", k)
+               .replace(".downsample.0.", ".downsample_conv.")
+               .replace(".downsample.1.", ".downsample_bn."), k)
+              for k in sds["hopenet"] if not k.startswith("fc_finetune")
+              and not k.endswith("num_batches_tracked")]
+    bad = [f"{t}.{k}" for t, k, src in pairs
+           if not torch.equal(own[t][k].cpu(), torch.from_numpy(sds[t][src]))]
+    covered = {t: sum(1 for p in pairs if p[0] == t) for t in own}
+    print(f"[reference] teachers at their real shapes converted in {seconds:.1f} s and loaded "
+          f"through pretrained_dir: {covered} tensors held to their sources, {len(bad)} differ")
+    check(not bad and covered["hopenet"] == len(own["hopenet"]),
+          f"teachers differ from their sources at {bad[:8]}")
+    size = cfg.model.image_size
+    g = torch.Generator(device="cuda").manual_seed(REF_SEED)
+    batch = tuple(torch.rand(N_BATCH, size, size, 3, generator=g, device="cuda")
+                  for _ in range(4))
+    fast_warp.reset_launch_counts()
+    out = train_step(state, batch, generator=g)
+    losses = {k: float(v) for k, v in {**out["losses_g"], **out["losses_d"]}.items()}
+    counts = dict(fast_warp.launches)
+    print(f"[reference] one fp32 training step at batch {N_BATCH} from the converted teachers: "
+          f"losses {json.dumps({k: round(v, 5) for k, v in losses.items()})}; launches {counts}")
+    check(all(math.isfinite(v) for v in losses.values()), f"non-finite losses {losses}")
+    want = _want(counts, "float32", 1)
+    check(counts == want, f"the step launched {counts}, want {want}")
+    return counts, seconds
 
 
 def gif_frame_count(data):
@@ -3464,6 +3891,7 @@ def main(argv=None) -> int:
                          ("train_tiny", phase_train_tiny),
                          ("train", lambda: _train(card, "float32")),
                          ("checkpoint", lambda: phase_checkpoint(card)),
+                         ("reference", lambda: phase_reference(card)),
                          ("eval", lambda: phase_eval(card)),
                          ("train_bf16", lambda: _train(card, "bfloat16")),
                          ("train_loop", lambda: phase_train_loop(card)),
@@ -3487,6 +3915,8 @@ def main(argv=None) -> int:
                 paths[name] = out                  # each main path's launch counts
             elif name == "train_tiny":
                 det_paths.update(out)              # the deterministic mode's steps
+            elif name == "reference":
+                paths["reference"], reference_rates = out
             elif name == "eval":
                 paths["eval"], eval_n1, eval_rates = out
             elif name == "train_loop":
@@ -3549,6 +3979,7 @@ def main(argv=None) -> int:
         if name == "probe_gather":
             kernels[-1]["floor_ms"] = sum(r["floor_ms"] for r in mine)
     print(json.dumps({"kernels": kernels}))
+    print(f"[reference] {json.dumps({'card': card, **reference_rates})}")
     print(f"[eval] {json.dumps({k: round(v, 3) for k, v in eval_rates.items()})}")
     print(f"[train_loop] {json.dumps(loop_rates)}")
     print(f"[video] {json.dumps(video_rates)}")

@@ -45,10 +45,6 @@ MODULE_STAND_INS = {
     "facevae_tpu.utils": (
         None, "TRANSFER_LOCK, locked_device_get and the XLA compile cache: the TPU "
               "runtime's (ROADMAP.md, Not to port)"),
-    "facevae_tpu.utils_port": (
-        "facevae_tpu_torch.convert",
-        "the order-based torch <-> flax zip for the reference's checkpoints; the port's "
-        "bridge is keyed on names"),
     "facevae_tpu.ops.pallas": (
         "facevae_tpu_torch.ops.fast_warp",
         "the Pallas warp kernels, ported as CUDA in facevae_tpu_torch/csrc/ behind "
