@@ -11,7 +11,9 @@ Phases, each fatal on failure (exit code 1, no result line):
               does not need, are installed (looked up, not imported).
   2. build    nvcc-builds every kernel library from csrc/ (warp_fwd,
               warp_bwd, warp_grid, probe_gather, probe_warp), one nvcc per
-              source, all started together.
+              source, all started together; names the entry points that
+              spill or keep a stack frame, and prints the registers and
+              shared memory of kernel 4's entry points.
   3. kernels  each kernel against its plain PyTorch version on the card, at
               the main paths' shapes (batch 8), fp32 and bf16, with
               far-out-of-volume, +-inf, last-index and exact-integer
@@ -36,7 +38,10 @@ Phases, each fatal on failure (exit code 1, no result line):
               and its plain version's median CUDA-event time over 20 calls;
               each kernel's bound from its bytes, and the dx kernels'
               run-to-run max difference (their atomics add in varying
-              order).  The dx kernels' deterministic variants (fixed-point
+              order).  Per single-grid site and dtype, which of kernel 4's
+              two kernels ran (voxel: C fits one vector; table: a block's
+              corner table in shared memory) on how many of its blocks.
+              The dx kernels' deterministic variants (fixed-point
               int64 sums) at every site and dtype where dx runs: within
               the dx tolerance of the plain version, the same bits on a
               second run and, at MFE, with the K1 grids permuted; their
@@ -542,18 +547,54 @@ def optional_packages():
     return out
 
 
+def _ptxas_entries(report):
+    """nvcc -Xptxas -v's report -> {entry point: {"frame": its stack-frame /
+    spill line, "used": its registers / shared-memory line}}."""
+    entries, name = {}, None
+    for ln in report.splitlines():
+        ln = ln.strip()
+        if "Compiling entry function" in ln or "Function properties for" in ln:
+            name = ln.split("'")[1] if "'" in ln else ln.rsplit(" ", 1)[-1]
+            entries.setdefault(name, {})
+        elif name and "stack frame" in ln:
+            entries[name]["frame"] = ln
+        elif name and ln.startswith("ptxas info    : Used"):
+            entries[name]["used"] = ln.split(":", 1)[1].strip()
+    return entries
+
+
+def _demangled(names):
+    """C++ names of mangled entry points without their parameter lists
+    (c++filt -p where the toolkit's host has it, else as they are)."""
+    import shutil
+    names = list(names)
+    if names and shutil.which("c++filt"):
+        out = subprocess.run(["c++filt", "-p"], input="\n".join(names), capture_output=True,
+                             text=True, timeout=60).stdout.splitlines()
+        if len(out) == len(names):
+            names = [n.replace("(anonymous namespace)::", "") for n in out]
+    return names
+
+
 def phase_build():
+    """Builds every library; per library its entry points, naming those that
+    spill or keep a stack frame, and the registers and shared memory of the
+    single-grid forward's (kernel 4's) entry points."""
     from facevae_tpu_torch import kernels
     t0 = time.perf_counter()
     kernels.load_all()
     for name in kernels.LIBRARIES:
         info = kernels.build_info[name]
         print(f"[build] {name} built in {info['seconds']:.2f} s")
-        regs = [ln.strip() for ln in info["ptxas"].splitlines() if "registers" in ln]
-        spills = [ln.strip() for ln in info["ptxas"].splitlines()
-                  if "spill" in ln and not ln.strip().startswith("0 bytes stack frame, 0")]
-        print(f"[build]   {len(regs)} entry points; {regs[0] if regs else ''}; "
-              f"{len(spills)} with spills or a stack frame {spills}")
+        entries = _ptxas_entries(info["ptxas"])
+        none = "0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads"
+        framed = {e: v["frame"] for e, v in entries.items() if v.get("frame", none) != none}
+        print(f"[build]   {len(entries)} entry points; {len(framed)} with spills or a stack "
+              f"frame: " + ("; ".join(f"{d} ({framed[e]})" for d, e in
+                                      zip(_demangled(framed), framed)) or "none"))
+        fwd = [e for e in entries if "grid_fwd" in e]
+        for d, e in zip(_demangled(fwd), fwd):
+            print(f"[build]   kernel 4 {d}: {entries[e].get('used', '?')}")
     print(f"[build] all libraries in {time.perf_counter() - t0:.2f} s (in parallel)")
 
 
@@ -632,6 +673,23 @@ def _permuted_dx(x, coords, gout, spatial):
         x, *(c[:, perm].contiguous() for c in coords), pgout, spatial, need_dgrid=False)[0])
 
 
+def _grid_fwd_path(x, out, gps):
+    """Which of kernel 4's kernels its last launch ran, and on how many of
+    its blocks: the launch grid the wrapper reported, held to the plan
+    fast_warp._grid_fwd_plan mirrors from the launch code (every block of a
+    launch runs the one kernel: no branch is taken per block)."""
+    from facevae_tpu_torch.ops import fast_warp as fw
+    N, D, H, W, C = x.shape
+    launched = fw.launch_grids["grid_fwd"]
+    cpt = fw._cpt(C, x.element_size(), x, out)
+    kernel, plan = fw._grid_fwd_plan(C, cpt, D * H * W, N * gps)
+    check(tuple(launched) == plan, f"kernel 4 launched {launched}, its plan is {plan}")
+    blocks = launched[0] * launched[1]
+    other = "table" if kernel == "voxel" else "voxel"
+    return (f"{kernel} kernel (C / cpt = {C // cpt}) on {blocks} of {blocks} blocks, "
+            f"{other} kernel on 0")
+
+
 def _cross_check(x, grid, gps):
     """The single-grid forward against the multi-grid forward on the same
     samples (the pixel coordinates unnormalized as the single-grid kernel
@@ -706,6 +764,8 @@ def phase_kernels():
                 if name == "warp_bwd_dx_det" and K1 > 1:
                     row["permuted_equal"] = bool(torch.equal(
                         _permuted_dx(x, coords, gout, spatial), out[0]))
+                if name == "grid_fwd":
+                    row["path"] = _grid_fwd_path(x, out[0], K1)
                 rows.append(row)
                 rerun = (f"; run-to-run max|diff| {row['rerun_diff']:.3e}"
                          if "rerun_diff" in row else "")
@@ -717,6 +777,8 @@ def phase_kernels():
                       f"device {row['ms']:.4f} ms (event {row['event_ms']:.4f}), plain "
                       f"{row['plain_ms']:.4f}, F.grid_sample {row['library_ms']:.4f}, "
                       f"bound {row['bound_ms']:.4f} ms ({row['bound_by']}){rerun}")
+                if "path" in row:
+                    print(f"[kernels]   kernel 4 {site} {dname}: {row['path']}")
             if family == "warp":
                 nbytes = N * D * H * W * K1 * C * x.element_size()
                 tiled = " through its shared-memory tile" if K1 > 1 else ""

@@ -28,8 +28,10 @@ coordinates at K1=1 for the multi-grid kernels at bf16, as warp_single
 dispatches).  Single-grid sites: the Generator (gps=1, the noisy and
 sparse sets normalized, and its step set) and the reference-form MFE call
 (x [8,16,64,64,4], gps=16, warp_inputs.reference_form_grid), fp32 and
-bf16.  The inputs come from this checkout's warp_inputs.py and this
-script's recorders, so both checkouts get the same ones (a step set is
+bf16, and the Generator's forward at N = 1 (x [1,16,64,64,32]: evaluation's
+gif modes; its step set and the noisy set, fp32).  The inputs come from
+this checkout's warp_inputs.py and this script's recorders, so both
+checkouts get the same ones (a step set is
 computed by the timed checkout's own step, whose forward kernels are the
 same bits in both so far: the input digests say so).
 Per case one JSON line: the device time per call of the forward, dgrid and
@@ -67,20 +69,24 @@ from pathlib import Path
 
 N_BATCH, VOLUME = 8, (16, 64, 64)
 ALL = ("fwd", "dgrid", "dx")
-# (site, kernel family, C, K1 or gps, volume, coordinate set, dtypes, halves)
-CASES = (("MFE", "warp", 4, 15, VOLUME, "noisy", ("float32", "bfloat16"), ALL),
-         ("MFE", "warp", 4, 15, VOLUME, "sparse", ("float32", "bfloat16"), ALL),
-         ("MFE", "warp", 4, 15, VOLUME, "sparse+probes", ("float32",), ALL),
-         ("Generator", "warp", 32, 1, VOLUME, "noisy", ("float32", "bfloat16"), ALL),
-         ("TPS", "warp", 3, 1, (1, 256, 256), "noisy", ("bfloat16",), ("fwd",)),
-         ("MFE", "warp", 4, 15, VOLUME, "step", ("float32", "bfloat16"), ALL),
-         ("Generator", "grid", 32, 1, VOLUME, "noisy", ("float32", "bfloat16"), ALL),
+# (site, kernel family, C, K1 or gps, volume, coordinate set, dtypes, halves,
+# batch); new cases go last, so the draws of the earlier ones stay as they were
+CASES = (("MFE", "warp", 4, 15, VOLUME, "noisy", ("float32", "bfloat16"), ALL, N_BATCH),
+         ("MFE", "warp", 4, 15, VOLUME, "sparse", ("float32", "bfloat16"), ALL, N_BATCH),
+         ("MFE", "warp", 4, 15, VOLUME, "sparse+probes", ("float32",), ALL, N_BATCH),
+         ("Generator", "warp", 32, 1, VOLUME, "noisy", ("float32", "bfloat16"), ALL, N_BATCH),
+         ("TPS", "warp", 3, 1, (1, 256, 256), "noisy", ("bfloat16",), ("fwd",), N_BATCH),
+         ("MFE", "warp", 4, 15, VOLUME, "step", ("float32", "bfloat16"), ALL, N_BATCH),
+         ("Generator", "grid", 32, 1, VOLUME, "noisy", ("float32", "bfloat16"), ALL, N_BATCH),
          ("MFE reference form", "grid", 4, 16, VOLUME, "reference form",
-          ("float32", "bfloat16"), ALL),
-         ("Generator", "warp", 32, 1, VOLUME, "step", ("bfloat16",), ALL),
-         ("Generator", "grid", 32, 1, VOLUME, "step", ("float32",), ALL),
-         ("Generator", "warp", 32, 1, VOLUME, "sparse", ("float32", "bfloat16"), ALL),
-         ("Generator", "grid", 32, 1, VOLUME, "sparse", ("float32", "bfloat16"), ALL))
+          ("float32", "bfloat16"), ALL, N_BATCH),
+         ("Generator", "warp", 32, 1, VOLUME, "step", ("bfloat16",), ALL, N_BATCH),
+         ("Generator", "grid", 32, 1, VOLUME, "step", ("float32",), ALL, N_BATCH),
+         ("Generator", "warp", 32, 1, VOLUME, "sparse", ("float32", "bfloat16"), ALL, N_BATCH),
+         ("Generator", "grid", 32, 1, VOLUME, "sparse", ("float32", "bfloat16"), ALL, N_BATCH),
+         # evaluation's gif modes: the Generator's single-grid forward at N = 1
+         ("Generator", "grid", 32, 1, VOLUME, "step", ("float32",), ("fwd",), 1),
+         ("Generator", "grid", 32, 1, VOLUME, "noisy", ("float32",), ("fwd",), 1))
 
 
 def _module(relpath):
@@ -174,19 +180,19 @@ def generator_step_inputs(dtype, device="cuda", cfg=None, batch=N_BATCH):
     return x, [c.contiguous() for c in _grid_pixels(x, grid, 1)]
 
 
-def case_inputs(site, family, C, K1, volume, cset, g):
+def case_inputs(site, family, C, K1, volume, cset, g, batch=N_BATCH):
     """The coordinates (multi-grid) or normalized grid (single-grid) of one
-    drawn case (drawn once for its dtypes)."""
+    drawn case at ``batch`` (drawn once for its dtypes)."""
     import torch
     inputs = _inputs_module()
     D, H, W = volume
     if cset == "reference form":
-        return inputs.reference_form_grid(N_BATCH, K1 - 1, D, H, W, g)
+        return inputs.reference_form_grid(batch, K1 - 1, D, H, W, g)
     if cset.startswith("sparse"):
-        coords = inputs.sparse_motion_coords(N_BATCH, K1, D, H, W, g,
+        coords = inputs.sparse_motion_coords(batch, K1, D, H, W, g,
                                              probes=cset == "sparse+probes")
         return inputs.normalized(coords, D, H, W) if family == "grid" else coords
-    coords = inputs.noisy_coords(N_BATCH, K1, D, H, W, g)
+    coords = inputs.noisy_coords(batch, K1, D, H, W, g)
     if site == "TPS":                              # a D=1 frame: z is exactly 0
         coords[2] = torch.zeros_like(coords[2])
     return inputs.normalized(coords, D, H, W) if family == "grid" else coords
@@ -283,27 +289,28 @@ def smi():
 def run():
     """One dict per (case, dtype): the halves' device ms per call, those of
     library_calls on the same samples (``library_<half>_ms``), and the
-    digests."""
+    digests; N is the case's batch."""
     import torch
     from facevae_tpu_torch.ops import fast_warp as fw
     from facevae_tpu_torch.probes.common import graph_ms
     g = torch.Generator(device="cuda").manual_seed(0)
     rows = []
-    for site, family, C, K1, volume, cset, dtypes, halves in CASES:
+    for site, family, C, K1, volume, cset, dtypes, halves, batch in CASES:
         if cset != "step":
-            inp = case_inputs(site, family, C, K1, volume, cset, g)
+            inp = case_inputs(site, family, C, K1, volume, cset, g, batch)
         for dname in dtypes:
             dtype = getattr(torch, dname)
             if cset == "step":
-                x, inp = step_inputs(dname) if site == "MFE" else generator_step_inputs(dname)
+                x, inp = (step_inputs(dname) if site == "MFE" else
+                          generator_step_inputs(dname, batch=batch))
             else:
-                x = torch.randn(N_BATCH, *volume, C, generator=g, device="cuda").to(dtype)
-            gout = (torch.randn(N_BATCH, *volume, K1 * C, generator=g, device="cuda")
+                x = torch.randn(batch, *volume, C, generator=g, device="cuda").to(dtype)
+            gout = (torch.randn(batch, *volume, K1 * C, generator=g, device="cuda")
                     if family == "warp" else
-                    torch.randn(N_BATCH * K1, *volume, C, generator=g, device="cuda")).to(dtype)
+                    torch.randn(batch * K1, *volume, C, generator=g, device="cuda")).to(dtype)
             calls = _calls(fw, family, x, inp, gout, K1, volume)
             halves_here = [*halves, *(["dx_det"] if "dx" in halves and "dx_det" in calls else [])]
-            row = dict(site=site, family=family, set=cset, dtype=dname, C=C, K1=K1)
+            row = dict(site=site, family=family, set=cset, dtype=dname, C=C, K1=K1, N=batch)
             row.update({f"{h}_ms": graph_ms(calls[h]) for h in halves_here})
             row.update({f"library_{h}_ms": graph_ms(call) for h, call in
                         _library_of(family, x, inp, gout, K1, volume).items()

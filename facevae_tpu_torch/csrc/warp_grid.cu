@@ -37,24 +37,66 @@
 //
 // What bounds them on an H100: bytes, and atomics for dx.  At the Generator
 // call (batch 8, 16x64x64 volume, C=32, gps=1, fp32) the forward reads 67 MB
-// of source and 25 MB of grid and writes 67 MB; the dgrid kernel also reads
-// gout (67 MB) and writes 25 MB; the dx kernel reads the grid and gout and
-// writes 67 MB of dx through 34M float4 atomics.  At the reference-form MFE
-// call (C=4, gps=16) the grid is 101 MB and the samples 134 MB.  PERF.md holds
-// the measured times.
+// of source and 6.3 MB of grid and writes 67 MB (0.042 ms at 3.35 TB/s); the
+// dgrid kernel also reads gout (67 MB) and writes 6.3 MB; the dx kernel reads
+// the grid and gout and writes 67 MB of dx through 34M float4 atomics.  At
+// the reference-form MFE call (C=4, gps=16) the grid is 101 MB and the
+// samples 134 MB.  PERF.md holds the measured times.
 //
-// Design: all three kernels run threads per (g, v, vector of CPT channels)
-// (16 bytes where C allows it), so the grid-major output and gout are read
-// and written contiguously across a warp (unlike warp_fwd.cu's k-major
-// stores); blockIdx.y is g.  The forward and dx kernels run one thread per
-// channel vector.  The dgrid kernel sums a dot product over all C channels
-// per corner: it runs LANES threads per (g, v) (the power of two >= C / CPT,
-// at most 32), each loading its cotangent vector once and reading one
-// coalesced vector of each corner, and reduces the three partial sums over
-// the voxel's lanes with __shfl_xor_sync; lanes 0-2 store them.  Its first
-// design, a thread per (g, v) reading every vector of gout again at each of
-// the 8 corners (64 loads where 8 do at the fp32 Generator, none coalesced
-// across the warp), was slower than F.grid_sample's backward (PERF.md §6).
+// The forward.  Its first design ran a thread per (g, v, channel vector), as
+// the backward kernels below do: at C = 32 the 8 threads of a voxel each
+// loaded the same coordinates and took the same floors, weights, inside tests
+// and float-to-int conversions (3 a corner), and each summed its corners
+// load by load.  It ran at 36-54% of its byte bound, and bf16 was no faster
+// than fp32 at the reference form.  Variants timed against it in one call
+// each (NVIDIA H100 80GB HBM3, 700 W; PERF.md §6) showed what held it back:
+// the instructions of the coordinate work (a conversion runs at a quarter of
+// the FMA rate) and too few loads in flight a thread.  Now:
+//   - corners() does a voxel's coordinate work once: 3 floors and 3
+//     conversions, the 8 indices from one base in unsigned arithmetic, the 8
+//     weights as the first design's products;
+//   - C == CPT (the reference form's C = 4): grid_fwd_voxel_kernel, a thread
+//     per 4 voxels of a grid (one from each quarter of the launch, so each
+//     round of a warp stays coalesced): it loads all 4 voxels' coordinates
+//     first, keeps each corner table in registers and issues the corners'
+//     loads two at a time (at most 64 registers, 4 blocks an SM);
+//   - C > CPT (the Generator's C = 32): grid_fwd_table_kernel, a block per
+//     (g, 256 voxels).  A thread per voxel writes its corner table to shared
+//     memory; then the block walks the (voxel, channel vector) items, the
+//     vector fastest, so a warp's corner loads still read whole rows.  fp32
+//     issues all 8 loads before its sums (64 registers, 4 blocks an SM);
+//     bf16 leaves their order to the compiler in 32 registers (batched, it
+//     spilled or lost blocks and ran slower).  At N = 1 (evaluation's gif
+//     modes) its 256 blocks fill the 132 SMs in one wave, where the first
+//     design's 2048 took two;
+//   - the grid is read and the output written evict-first (__ldcs, __stcs):
+//     each is touched once.  1-2% at every set.
+// The same corners in the order z, y, x, the same weight products and the
+// same fp32 sums in the same order, rounded once: the output is bit for bit
+// the first design's (bench_warp.py's digests) and kernel 1's at K1 = 1.
+// Measured and dropped (PERF.md §6): the block's source box staged in shared
+// memory where it fits (40 or 80 KB, chosen per block): slower than the table
+// kernel at every set and 1.3-4.3x the first design's time at bf16 and at
+// the reference form, where the boxes of rotated grids are many times their
+// footprint; the x corners carried in registers along runs of voxels (1.1-1.2x
+// the same walk without it); output tiles of 2x4x32, 4x8x8 or 1x16x16 voxels
+// in place of 256 consecutive ones (mixed at the Generator, 1.4-1.7x at the
+// reference form); the coordinates copied through shared memory (1.4x); bf16
+// loaded in 8-byte vectors so that it can batch as fp32 does (1.0-1.2x the
+// 16-byte ones).
+//
+// The backward kernels run threads per (g, v, vector of CPT channels) (16
+// bytes where C allows it), so gout is read contiguously across a warp
+// (unlike warp_fwd.cu's k-major output); blockIdx.y is g.  The dx kernel
+// runs one thread per channel vector.  The dgrid kernel sums a dot product
+// over all C channels per corner: it runs LANES threads per (g, v) (the power
+// of two >= C / CPT, at most 32), each loading its cotangent vector once and
+// reading one coalesced vector of each corner, and reduces the three partial
+// sums over the voxel's lanes with __shfl_xor_sync; lanes 0-2 store them.
+// Its first design, a thread per (g, v) reading every vector of gout again at
+// each of the 8 corners (64 loads where 8 do at the fp32 Generator, none
+// coalesced across the warp), was slower than F.grid_sample's backward
+// (PERF.md §6).
 // The dx kernel is bound by its atomics, not its bytes: 8 corners x C / CPT
 // vector atomics per (g, v), 33.5M float4 ones at the fp32 Generator call
 // against a 67 MB byte bound of 42 us.  It pairs corners across lanes before
@@ -90,51 +132,157 @@ __device__ __forceinline__ float unnormalize(float g, int size) {
   return (g + 1.f) * 0.5f * (float)(size - 1);
 }
 
-template <typename T, int CPT>
-__global__ void __launch_bounds__(kThreads)
-grid_fwd_kernel(const T* __restrict__ x, const float* __restrict__ grid,
-                T* __restrict__ out, int D, int H, int W, int C, int gps, int NV) {
-  const int cvs = C / CPT;
-  const long long t = (long long)blockIdx.x * kThreads + threadIdx.x;
-  if (t >= (long long)NV * cvs) return;  // ragged tail
-  const int v = (int)(t / cvs);
-  const int cv = (int)(t - (long long)v * cvs);
-  const int g = blockIdx.y;
-  const long long gv = (long long)g * NV + v;
-  const float* p = grid + gv * 3;
-  const Axis ax = axis(unnormalize(p[0], W)), ay = axis(unnormalize(p[1], H)),
-             az = axis(unnormalize(p[2], D));
-  const T* xn = x + (long long)(g / gps) * D * H * W * C + cv * CPT;
-
-  float acc[CPT];
-#pragma unroll
-  for (int i = 0; i < CPT; ++i) acc[i] = 0.f;
+// Calls f(k, j, w) for the 8 corners k = 4 dz + 2 dy + dx of the pixel
+// coordinates (px, py, pz), in that order: j the corner's voxel index in the
+// volume [D, H, W], -1 outside it (NaN and +-inf coordinates too), w its
+// weight (w_z * w_y, then * w_x).  Three float-to-int conversions a voxel:
+// the lower corner's index is formed in wrapping unsigned arithmetic from the
+// floors converted with saturation, and used only for a corner inside the
+// volume, where every floor lies in [-1, size - 1].
+template <class F>
+__device__ __forceinline__ void corners(float px, float py, float pz, int D, int H, int W, F&& f) {
+  const Axis ax = axis(px), ay = axis(py), az = axis(pz);
+  const bool xin[2] = {inside(ax.f, W), inside(ax.f + 1.f, W)};
+  const bool yin[2] = {inside(ay.f, H), inside(ay.f + 1.f, H)};
+  const bool zin[2] = {inside(az.f, D), inside(az.f + 1.f, D)};
+  const unsigned base = ((unsigned)__float2int_rz(az.f) * (unsigned)H +
+                         (unsigned)__float2int_rz(ay.f)) * (unsigned)W +
+                        (unsigned)__float2int_rz(ax.f);
 #pragma unroll
   for (int dz = 0; dz < 2; ++dz) {
-    const float zc = az.f + dz;
-    if (!inside(zc, D)) continue;
     const float wz = dz ? az.t : 1.f - az.t;
 #pragma unroll
     for (int dy = 0; dy < 2; ++dy) {
-      const float yc = ay.f + dy;
-      if (!inside(yc, H)) continue;
       const float wzy = wz * (dy ? ay.t : 1.f - ay.t);
 #pragma unroll
       for (int dx = 0; dx < 2; ++dx) {
-        const float xc = ax.f + dx;
-        if (!inside(xc, W)) continue;
-        const float w = wzy * (dx ? ax.t : 1.f - ax.t);
-        const long long off = (((long long)(int)zc * H + (int)yc) * W + (int)xc) * C;
-        const Pack<T, CPT> s = *reinterpret_cast<const Pack<T, CPT>*>(xn + off);
-#pragma unroll
-        for (int i = 0; i < CPT; ++i) acc[i] += w * to_float(s.v[i]);
+        const unsigned d = ((unsigned)dz * H + dy) * W + dx;
+        f(dz * 4 + dy * 2 + dx, zin[dz] && yin[dy] && xin[dx] ? (int)(base + d) : -1,
+          wzy * (dx ? ax.t : 1.f - ax.t));
       }
+    }
+  }
+}
+
+// the pixel coordinates of grid entry p (the grid is streamed once: loads
+// marked evict-first)
+template <class F>
+__device__ __forceinline__ void grid_corners(const float* p, int D, int H, int W, F&& f) {
+  corners(unnormalize(__ldcs(p), W), unnormalize(__ldcs(p + 1), H),
+          unnormalize(__ldcs(p + 2), D), D, H, W, f);
+}
+
+// CPT channels of one output voxel, stored evict-first (written once)
+template <typename T, int CPT>
+__device__ __forceinline__ void put(T* dst, const Pack<T, CPT>& o) {
+  using U = typename Unit<sizeof(Pack<T, CPT>)>::type;
+  __stcs(reinterpret_cast<U*>(dst), *reinterpret_cast<const U*>(&o));
+}
+
+// CPT channels of one output voxel from the corner table off[k * S], w[k * S]
+// (S: its stride): the corners' loads BATCH at a time, each batch issued
+// before its sums, the sums in corner order, rounded once
+template <typename T, int CPT, int BATCH, int S>
+__device__ __forceinline__ Pack<T, CPT> sample(const T* __restrict__ src, int C,
+                                               const int* off, const float* w) {
+  float acc[CPT];
+#pragma unroll
+  for (int c = 0; c < CPT; ++c) acc[c] = 0.f;
+#pragma unroll
+  for (int k0 = 0; k0 < 8; k0 += BATCH) {
+    Pack<T, CPT> val[BATCH];
+#pragma unroll
+    for (int k = 0; k < BATCH; ++k) {
+      const int j = off[(k0 + k) * S];
+      if (j >= 0) val[k] = *reinterpret_cast<const Pack<T, CPT>*>(src + (long long)j * C);
+    }
+#pragma unroll
+    for (int k = 0; k < BATCH; ++k) {
+      if (off[(k0 + k) * S] < 0) continue;
+      const float wk = w[(k0 + k) * S];
+#pragma unroll
+      for (int c = 0; c < CPT; ++c) acc[c] += wk * to_float(val[k].v[c]);
     }
   }
   Pack<T, CPT> o;
 #pragma unroll
-  for (int i = 0; i < CPT; ++i) store(&o.v[i], acc[i]);
-  *reinterpret_cast<Pack<T, CPT>*>(out + gv * C + cv * CPT) = o;
+  for (int c = 0; c < CPT; ++c) store(&o.v[c], acc[c]);
+  return o;
+}
+
+// Voxels a thread of the voxel kernel, corner loads issued before their
+// sums, and blocks an SM (the register cap of __launch_bounds__), as
+// measured (PERF.md §6)
+constexpr int kVoxelsPerThread = 4, kVoxelBatch = 2, kVoxelBlocks = 4;
+template <typename T>
+constexpr int kTableBatch = sizeof(T) == 4 ? 8 : 1;
+template <typename T>
+constexpr int kTableBlocks = sizeof(T) == 4 ? 4 : 8;
+
+// C == CPT (one channel vector a voxel): a thread per kVoxelsPerThread
+// voxels of grid g, v + j * 256 * gridDim.x (so each j reads and writes
+// coalesced runs), all of whose coordinates it loads before its first
+// corner
+template <typename T, int CPT>
+__global__ void __launch_bounds__(kThreads, kVoxelBlocks)
+grid_fwd_voxel_kernel(const T* __restrict__ x, const float* __restrict__ grid,
+                      T* __restrict__ out, int D, int H, int W, int C, int gps, int NV) {
+  const int g = blockIdx.y;
+  const long long stride = (long long)gridDim.x * kThreads;
+  const long long v0 = (long long)blockIdx.x * kThreads + threadIdx.x;
+  const float* gg = grid + (long long)g * NV * 3;
+  float p[kVoxelsPerThread][3];
+#pragma unroll
+  for (int j = 0; j < kVoxelsPerThread; ++j) {
+    const long long v = v0 + j * stride;
+#pragma unroll
+    for (int a = 0; a < 3; ++a) p[j][a] = v < NV ? __ldcs(gg + v * 3 + a) : 0.f;
+  }
+  const T* xn = x + (long long)(g / gps) * D * H * W * C;
+  T* og = out + (long long)g * NV * C;
+#pragma unroll
+  for (int j = 0; j < kVoxelsPerThread; ++j) {
+    const long long v = v0 + j * stride;
+    if (v >= NV) break;
+    int off[8];
+    float w[8];
+    corners(unnormalize(p[j][0], W), unnormalize(p[j][1], H), unnormalize(p[j][2], D), D, H, W,
+            [&](int k, int jj, float wk) {
+              off[k] = jj;
+              w[k] = wk;
+            });
+    put<T, CPT>(og + v * C, sample<T, CPT, kVoxelBatch, 1>(xn, C, off, w));
+  }
+}
+
+// C > CPT: a block per (g, kThreads voxels); a thread per voxel writes its
+// corner table to shared memory, then the block's threads take the
+// (voxel, channel vector) items, the vector fastest
+template <typename T, int CPT>
+__global__ void __launch_bounds__(kThreads, kTableBlocks<T>)
+grid_fwd_table_kernel(const T* __restrict__ x, const float* __restrict__ grid,
+                      T* __restrict__ out, int D, int H, int W, int C, int gps, int NV) {
+  __shared__ int s_off[8][kThreads];
+  __shared__ float s_w[8][kThreads];
+  const int g = blockIdx.y;
+  const int i = threadIdx.x;
+  const long long v0 = (long long)blockIdx.x * kThreads;
+  const int nv = (int)min((long long)kThreads, NV - v0);
+  if (i < nv)
+    grid_corners(grid + ((long long)g * NV + v0 + i) * 3, D, H, W, [&](int k, int j, float wk) {
+      s_off[k][i] = j;
+      s_w[k][i] = wk;
+    });
+  __syncthreads();
+  const int cvs = C / CPT;
+  const T* xn = x + (long long)(g / gps) * D * H * W * C;
+  T* og = out + ((long long)g * NV + v0) * C;
+  for (int it = i; it < nv * cvs; it += kThreads) {
+    const int vl = it / cvs;
+    put<T, CPT>(og + (long long)it * CPT, sample<T, CPT, kTableBatch<T>, kThreads>(
+                                              xn + (it - vl * cvs) * CPT, C, &s_off[0][vl],
+                                              &s_w[0][vl]));
+  }
 }
 
 constexpr unsigned kFull = 0xffffffffu;
@@ -287,17 +435,25 @@ dim3 blocks(long long threads, int G) {
 // (C % cpt == 0, cpt * sizeof(T) <= 16, x / out / gout / dx aligned to it).
 // G = N * gps grids of NV voxels each.  Each returns the cudaError_t of its
 // launch (0 = success).  facevae_grid_fwd's launched (may be null): the
-// launch's grid x, y, z and threads a block are written there.
+// launch's grid x, y, z and threads a block are written there.  The forward
+// launches (ceil(NV / 1024), G) blocks of 256 threads of
+// grid_fwd_voxel_kernel where C == cpt, else (ceil(NV / 256), G) of
+// grid_fwd_table_kernel (fast_warp._grid_fwd_plan mirrors this); it indexes
+// source voxels and a block's 256 * C / cpt items with 32-bit ints (the
+// wrapper refuses more).
 extern "C" int facevae_grid_fwd(const void* x, const float* grid, void* out, int D, int H,
                                 int W, int C, int gps, int G, int NV, int dtype, int cpt,
                                 void* stream, unsigned* launched) {
   return dispatch(dtype, cpt, [&](auto t, auto c) {
     using T = std::remove_pointer_t<decltype(t)>;
     constexpr int CPT = decltype(c)::value;
-    const dim3 b = blocks((long long)NV * (C / CPT), G);
+    const int per_block = kThreads * (C == CPT ? kVoxelsPerThread : 1);
+    const dim3 b((unsigned)(((long long)NV + per_block - 1) / per_block), (unsigned)G);
     record_launch(launched, b, kThreads);
-    grid_fwd_kernel<T, CPT><<<b, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-        static_cast<const T*>(x), grid, static_cast<T*>(out), D, H, W, C, gps, NV);
+    const auto kernel = C == CPT ? grid_fwd_voxel_kernel<T, CPT> : grid_fwd_table_kernel<T, CPT>;
+    const cudaStream_t s = static_cast<cudaStream_t>(stream);
+    kernel<<<b, kThreads, 0, s>>>(static_cast<const T*>(x), grid, static_cast<T*>(out), D, H, W,
+                                  C, gps, NV);
   });
 }
 

@@ -315,10 +315,31 @@ def _check_dgrid_launch(N, K1, NV, lanes):
 
 
 def _check_source_voxels(x):
-    """The dx kernels index the source's voxels with 32-bit ints."""
+    """The single-grid forward and the dx kernels index the source's voxels
+    with 32-bit ints."""
     if math.prod(x.shape[1:4]) >= 2 ** 31:
-        raise ValueError(f"a source of {tuple(x.shape[1:4])} voxels exceeds the dx kernel's "
+        raise ValueError(f"a source of {tuple(x.shape[1:4])} voxels exceeds the kernel's "
                          "32-bit voxel index")
+
+
+_GRID_FWD_THREADS = 256        # threads a block of the single-grid forward
+_GRID_FWD_VOXELS_PER_THREAD = 4   # voxels a thread of its voxel kernel
+
+
+def _grid_fwd_plan(C, cpt, NV, G):
+    """The single-grid forward's launch (csrc/warp_grid.cu:facevae_grid_fwd):
+    its kernel and the grid it reports.  "voxel" where C == cpt (one channel
+    vector a voxel): a thread per 4 voxels, (ceil(NV / 1024), G, 1, 256);
+    else "table" (a block's corner table in shared memory, then its
+    (voxel, channel vector) items): 256 voxels a block, (ceil(NV / 256), G,
+    1, 256).  Raises where the table kernel's 32-bit item index, 256 * C /
+    cpt, would overflow."""
+    if _GRID_FWD_THREADS * (C // cpt) >= 2 ** 31:
+        raise ValueError(f"C={C} channels in vectors of {cpt} exceed the forward kernel's "
+                         "32-bit item index")
+    kernel = "voxel" if C == cpt else "table"
+    per_block = _GRID_FWD_THREADS * (_GRID_FWD_VOXELS_PER_THREAD if kernel == "voxel" else 1)
+    return kernel, (-(-NV // per_block), G, 1, _GRID_FWD_THREADS)
 
 
 def _check_cuda(name, x, cgx, cgy, cgz, spatial):
@@ -458,15 +479,18 @@ def warp_multi_pixel_bwd_cuda(x, cgx, cgy, cgz, gout, spatial, need_dx=True,
 
 
 def grid_sample_3d_cuda(x, grid, grids_per_source=1):
-    """Launch csrc/warp_grid.cu's forward on CUDA tensors; raises on
-    anything the kernel does not take."""
+    """Launch csrc/warp_grid.cu's forward on CUDA tensors (its voxel or
+    table kernel, as ``_grid_fwd_plan`` says); raises on anything the kernel
+    does not take."""
     _check_grid_cuda("grid_fwd", x, grid, grids_per_source)
+    _check_source_voxels(x)
     D, H, W, C = x.shape[1:]
     G, NV = grid.shape[0], math.prod(grid.shape[1:4])
     out = torch.empty((*grid.shape[:4], C), dtype=x.dtype, device=x.device)
     if out.numel() == 0:
         return out
     cpt = _cpt(C, x.element_size(), x, out)
+    _grid_fwd_plan(C, cpt, NV, G)
     launched = (ctypes.c_uint * 4)()
     with torch.cuda.device(x.device):
         _launch("grid_fwd", x.data_ptr(), grid.data_ptr(), out.data_ptr(),

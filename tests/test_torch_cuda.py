@@ -166,10 +166,14 @@ def test_single_grid_forward_kernel_matches_plain(spatial, C, dtype):
 def test_forward_wrappers_report_the_grid_they_launched(N, D, H, W, C, K1):
     """fast_warp.launch_grids holds each forward wrapper's last launch as the
     launch code wrote it back: 256 threads a block, one grid row per batch
-    entry (kernel 1) or per grid (kernel 4), and enough blocks along x that
-    every voxel has a thread (kernel 1 at K1 > 1: a tile of at most 64
-    voxels a block), and no more blocks than one voxel a block (K1 > 1)
-    or one channel a thread."""
+    entry (kernel 1) or per grid (kernel 4, here at gps = K1), and enough
+    blocks along x that every voxel has a thread (kernel 1 at K1 > 1: a tile
+    of at most 64 voxels a block), and no more blocks than one voxel a block
+    (K1 > 1) or one channel a thread (kernel 1 at K1 = 1).  Kernel 4: its
+    voxel kernel (C = 4) takes 4 voxels a thread, v + j * 256 * blocks, its
+    table kernel (C = 32 and 3) 256 voxels a block: every voxel in a block,
+    and no block without one; its grid is the one fast_warp._grid_fwd_plan
+    mirrors."""
     x, coords, spatial = _case(N + C + K1, N, D, H, W, C, K1, torch.float32)
     NV = D * H * W
     fast_warp.launch_grids.clear()
@@ -180,12 +184,15 @@ def test_forward_wrappers_report_the_grid_they_launched(N, D, H, W, C, K1):
         assert NV <= gx * 64 and gx <= NV
     else:
         assert NV <= gx * 256 and gx <= -(-NV * C // 256)
-    if K1 == 1:
-        grid = torch.rand(N, D, H, W, 3, device="cuda") * 2 - 1
-        fast_warp.grid_sample_3d_cuda(x, grid, 1)
-        gx, gy, gz, threads = fast_warp.launch_grids["grid_fwd"]
-        assert (gy, gz, threads) == (N, 1, 256)
-        assert NV <= gx * 256 <= NV * C + 255
+    grid = torch.rand(N * K1, D, H, W, 3, device="cuda") * 2 - 1
+    out = fast_warp.grid_sample_3d_cuda(x, grid, K1)
+    gx, gy, gz, threads = fast_warp.launch_grids["grid_fwd"]
+    assert (gy, gz, threads) == (N * K1, 1, 256)
+    per_block = 1024 if C == 4 else 256
+    assert NV <= gx * per_block < NV + per_block and (gx - 1) * 256 < NV
+    kernel, plan = fast_warp._grid_fwd_plan(C, fast_warp._cpt(C, 4, x, out), NV, N * K1)
+    assert plan == (gx, gy, gz, threads)
+    assert kernel == ("voxel" if C == 4 else "table")
 
 
 @contextlib.contextmanager

@@ -8,7 +8,10 @@ CPU:
 - the port's plain multi-grid warp, which the card holds kernels 1-3 to,
   against the JAX package's warp_multi_pixel and its vjp on each set at a
   small size (x [2,5,9,9,4], K1=3): 1e-5 of max|ref|, as
-  tests/test_torch_warp.py holds it on its own coordinates.
+  tests/test_torch_warp.py holds it on its own coordinates;
+- the single-grid forward's launch mirror (``_grid_fwd_plan``: its kernel
+  and grid, against the launch code's source) and bench_warp.py's cases
+  with their batch (the N = 1 forward).
 """
 import jax
 import jax.numpy as jnp
@@ -106,3 +109,53 @@ def test_plain_warp_backward_matches_jax_on_the_sets(cset):
     assert_close(dx, rdx, 1e-5, f"{cset} dx")
     for a, (d, r) in enumerate(zip(dgrid, rdgrid)):
         assert_close(d, r, 1e-5, f"{cset} dgrid {'xyz'[a]}")
+
+
+@pytest.mark.parametrize("C, cpt, NV, G, kernel, blocks", [
+    (4, 4, 65536, 128, "voxel", 64),       # the reference form: 4 voxels a thread
+    (32, 4, 65536, 8, "table", 256),       # the Generator, fp32
+    (32, 8, 65536, 1, "table", 256),       # bf16, and evaluation's N = 1
+    (3, 1, 323, 3, "table", 2),            # a ragged last block
+    (1, 1, 1, 1, "voxel", 1),
+    (2, 2, 1025, 2, "voxel", 2)])
+def test_grid_forward_plan(C, cpt, NV, G, kernel, blocks):
+    """fast_warp._grid_fwd_plan, the mirror of kernel 4's launch: the voxel
+    kernel where C is one vector (1024 voxels a block), else the table
+    kernel (256); 256 threads a block, G grids on the grid's y."""
+    assert tfw._grid_fwd_plan(C, cpt, NV, G) == (kernel, (blocks, G, 1, 256))
+
+
+def test_grid_forward_plan_mirrors_the_launch_code():
+    """The plan's threads are the kernels' kThreads, its voxels a thread the
+    voxel kernel's, its kernel choice the launch code's, and it refuses a
+    block's item index past 32 bits."""
+    import re
+    from pathlib import Path
+    csrc = Path(tfw.__file__).resolve().parents[1] / "csrc"
+    threads = re.search(r"constexpr int kThreads = (\d+);",
+                        (csrc / "warp_common.cuh").read_text()).group(1)
+    source = (csrc / "warp_grid.cu").read_text()
+    per_thread = re.search(r"constexpr int kVoxelsPerThread = (\d+)", source).group(1)
+    assert (int(threads), int(per_thread)) == (tfw._GRID_FWD_THREADS,
+                                              tfw._GRID_FWD_VOXELS_PER_THREAD)
+    assert "kThreads * (C == CPT ? kVoxelsPerThread : 1)" in source
+    assert "C == CPT ? grid_fwd_voxel_kernel<T, CPT> : grid_fwd_table_kernel<T, CPT>" in source
+    assert tfw._grid_fwd_plan(2 ** 23 - 1, 1, 1, 1)[0] == "table"
+    with pytest.raises(ValueError, match="32-bit item index"):
+        tfw._grid_fwd_plan(2 ** 23, 1, 1, 1)
+
+
+def test_bench_cases_carry_their_batch():
+    """bench_warp.py's cases name their batch: the Generator's single-grid
+    forward at N = 1 (evaluation's gif modes) on the step and noisy sets,
+    after every batch-8 case; a drawn case is sized by its batch."""
+    from facevae_tpu_torch import bench_warp
+    batches = [case[-1] for case in bench_warp.CASES]
+    assert batches == sorted(batches, reverse=True) and set(batches) == {8, 1}
+    n1 = [case[:-1] for case in bench_warp.CASES if case[-1] == 1]
+    assert [(c[0], c[1], c[5], c[6], c[7]) for c in n1] == [
+        ("Generator", "grid", "step", ("float32",), ("fwd",)),
+        ("Generator", "grid", "noisy", ("float32",), ("fwd",))]
+    grid = bench_warp.case_inputs("Generator", "grid", 32, 1, (2, 5, 9), "noisy",
+                                  torch.Generator().manual_seed(0), batch=1)
+    assert grid.shape == (1, 2, 5, 9, 3) and grid.dtype == torch.float32
