@@ -1,0 +1,8 @@
+"""The warp kernels' share of their roofline in the train cells: the sites'
+bounds (warp_sites/<config>.train.json) over the kernels' device time in the
+profiled slice."""
+from portbench import readers
+
+
+def read(ctx):
+    return readers.warp_roofline(ctx, "train")
