@@ -28,6 +28,8 @@ all-reduce runs again in the recompute, on every rank alike.  Outside a
 region ``once`` is compute() and ``pin`` is x: a step without remat runs
 exactly as before.  The tape lives in a thread-local: the autograd engine
 runs a recompute on its own thread and enters the region's context there.
+Each recompute is a ``remat.recompute.<name>`` span (tracing.py), ``name``
+the region's: the net's name the objective gives, else the function's.
 """
 from __future__ import annotations
 
@@ -36,12 +38,14 @@ import threading
 import torch
 from torch.utils.checkpoint import checkpoint as _checkpoint
 
+from facevae_tpu_torch import tracing
+
 _local = threading.local()
 
 
 class _Tape:
     """The values ``once`` kept in one region's forward, in call order, and
-    the name of the region's function."""
+    the region's name."""
 
     def __init__(self, name: str):
         self.name = name
@@ -51,20 +55,24 @@ class _Tape:
 
 class _Region:
     """Makes ``tape`` the current one: recording, or replaying from its
-    start."""
+    start in a ``remat.recompute.<name>`` span."""
 
     def __init__(self, tape: _Tape, replay: bool):
         self.tape, self.replay = tape, replay
+        self.span = tracing.span("remat.recompute." + tape.name) if replay else None
 
     def __enter__(self):
         self.outer = getattr(_local, "tape", None)
         if self.replay:
             self.tape.pos = 0
+            self.span.__enter__()
         _local.tape = self.tape
         return self
 
     def __exit__(self, *exc):
         _local.tape = self.outer
+        if self.replay:
+            self.span.__exit__(*exc)
         return False
 
 
@@ -104,17 +112,18 @@ def pin(x: torch.Tensor, kept: torch.Tensor) -> torch.Tensor:
     return kept + (x - x.detach())
 
 
-def checkpoint(fn, *args, **kwargs):
+def checkpoint(fn, *args, name: str = None, **kwargs):
     """fn(*args, **kwargs) with its activations recomputed in the backward
-    pass (no RNG stash: nothing in a net draws from the global generator)."""
-    tape = _Tape(getattr(fn, "__name__", type(fn).__name__))
+    pass (no RNG stash: nothing in a net draws from the global generator);
+    ``name`` names the region (default: the function's name)."""
+    tape = _Tape(name or getattr(fn, "__name__", type(fn).__name__))
     return _checkpoint(fn, *args, use_reentrant=False, preserve_rng_state=False,
                        context_fn=lambda: (_Region(tape, False), _Region(tape, True)),
                        **kwargs)
 
 
-def call(enabled: bool, fn, *args, **kwargs):
-    """checkpoint(fn, ...) when ``enabled``, else fn(...)."""
+def call(enabled: bool, fn, *args, name: str = None, **kwargs):
+    """checkpoint(fn, ..., name=name) when ``enabled``, else fn(...)."""
     if enabled:
-        return checkpoint(fn, *args, **kwargs)
+        return checkpoint(fn, *args, name=name, **kwargs)
     return fn(*args, **kwargs)

@@ -8,7 +8,7 @@ same behaviour, including how it waits before a second full batch of one
 drain: max(0, min(window, 100 ms) - the first flush's time), nothing at
 the default 10 ms window, which a full-width flush (~170 ms) outlasts:
 
-  GET  /healthz                  -> {"ok": true, "batches": N, ...}
+  GET  /healthz                  -> {"ok": true, "batches": N, ..., "spans": {...}}
   POST /source?session=<id>      -> register/replace the session's source
   POST /drive?session=<id>       -> animate; returns the generated frame
   POST /frontalize               -> frontalize the posted frame (stateless)
@@ -27,11 +27,25 @@ so when it starts:
     python -m facevae_tpu_torch.serve --ckp_dir ckp --ckp 12       # on the card
     python -m facevae_tpu_torch.serve --tiny true --image_size 64 \
         --ckp_dir ckp --ckp 0 --device cpu                        # plain versions
+
+Every request and batch leaves spans in the port's ring (tracing.py), the
+request's id as their trace id: in the handler's thread ``serve.request``
+(body read to answer written) over ``serve.decode``, ``serve.wait`` (blocked
+in the engine) and ``serve.encode``; in the collector ``serve.queue`` (enqueue
+to the start of the flush that took the request; ``link``: the batch) and
+``serve.flush`` (the batch number as its trace id) over ``serve.assemble``
+(stacking, the copy to the device, the sessions' concatenation),
+``serve.graph`` (the host's time in the graph, with a ``net.<name>`` span a
+net) and ``serve.readback``.  /healthz's ``"spans"`` gives, for each
+``serve.*`` name, the count over the ring and the p50 and p95 in ms:
+
+    {"serve.flush": {"count": 812, "p50_ms": 199.1, "p95_ms": 214.7}, ...}
 """
 from __future__ import annotations
 
 import argparse
 import collections
+import itertools
 import json
 import queue
 import threading
@@ -42,6 +56,7 @@ from urllib.parse import parse_qs, urlparse
 import numpy as np
 import torch
 
+from facevae_tpu_torch import tracing
 from facevae_tpu_torch.config import Config, ModelConfig, tiny_config
 from facevae_tpu_torch.convert import load_jax_variables, net_variables
 from facevae_tpu_torch.data.dataset import to_rgb
@@ -99,7 +114,10 @@ class BatchedEngine:
         self.requests: "queue.Queue" = queue.Queue()
         self.stats = {"batches": 0, "frames": 0, "padded": 0}
         # host time of each of the last FLUSH_MS_KEPT batches, images in -> frames out
+        # (the serve.flush span's own clock reads)
         self.flush_ms = collections.deque(maxlen=self.FLUSH_MS_KEPT)
+        self.request_ids = itertools.count(1)      # the trace ids of requests
+        self._batch_ids = itertools.count(1)       # and of batches
         self._stop = False
         size = pipe.cfg.model.image_size
         self._zero = np.zeros((1, size, size, 3), np.float32)
@@ -121,11 +139,19 @@ class BatchedEngine:
 
     # -- request path ------------------------------------------------------
     def _submit(self, kind, session, img, timeout):
+        # the request's trace id: the enclosing span's (the handler's
+        # serve.request), else a new one; the slot carries it, the request
+        # span's id and the enqueue time to the collector's serve.queue span
+        outer = tracing.current()
+        rid = outer.trace_id if outer is not None and outer.trace_id is not None \
+            else next(self.request_ids)
         done = threading.Event()
-        slot = {}
-        self.requests.put((kind, session, img, slot, done))
-        if not done.wait(timeout):
-            raise TimeoutError("inference timed out")
+        with tracing.span("serve.wait", trace_id=rid) as wait:
+            slot = {"trace_id": rid, "parent": wait.id if outer is None else outer.id,
+                    "enqueued_ns": time.time_ns()}
+            self.requests.put((kind, session, img, slot, done))
+            if not done.wait(timeout):
+                raise TimeoutError("inference timed out")
         if "error" in slot:
             raise RuntimeError(slot["error"])
         return slot["out"]
@@ -192,22 +218,31 @@ class BatchedEngine:
                         done.set()
 
     def _flush(self, kind, batch):
-        t0 = time.perf_counter()
         n = len(batch)
         pad = self.max_batch - n
-        imgs = self._tensor(np.concatenate(
-            [np.asarray(img, np.float32)[None] for _, _, img, _, _ in batch]
-            + [self._zero] * pad, axis=0))
-        if kind == "drive":
-            with self.lock:
-                encs = [self.sessions[s] for _, s, _, _, _ in batch]
-            fs, kp_c, kp_s, Rs = (torch.cat([e[i] for e in encs] + [encs[-1][i]] * pad)
-                                  for i in range(4))
-            out = self.pipe.drive_frame(fs, kp_c, kp_s, Rs, imgs)
-        else:
-            out = self.pipe.frontalize_frame(imgs)
-        out = out.cpu().numpy()
-        self.flush_ms.append((time.perf_counter() - t0) * 1e3)
+        with tracing.span("serve.flush", trace_id=next(self._batch_ids)) as flush:
+            with tracing.span("serve.assemble"):
+                imgs = self._tensor(np.concatenate(
+                    [np.asarray(img, np.float32)[None] for _, _, img, _, _ in batch]
+                    + [self._zero] * pad, axis=0))
+                if kind == "drive":
+                    with self.lock:
+                        encs = [self.sessions[s] for _, s, _, _, _ in batch]
+                    fs, kp_c, kp_s, Rs = (torch.cat([e[i] for e in encs] + [encs[-1][i]] * pad)
+                                          for i in range(4))
+            with tracing.span("serve.graph"):
+                if kind == "drive":
+                    out = self.pipe.drive_frame(fs, kp_c, kp_s, Rs, imgs)
+                else:
+                    out = self.pipe.frontalize_frame(imgs)
+            with tracing.span("serve.readback"):
+                out = out.cpu().numpy()
+        self.flush_ms.append((flush.end_ns - flush.start_ns) / 1e6)
+        for _, _, _, slot, _ in batch:
+            if "enqueued_ns" in slot:
+                tracing.record("serve.queue", slot["enqueued_ns"], flush.start_ns,
+                               trace_id=slot["trace_id"], parent=slot["parent"],
+                               link=flush.trace_id)
         self.stats["batches"] += 1
         self.stats["frames"] += n
         self.stats["padded"] += pad
@@ -253,7 +288,8 @@ def make_handler(engine, size):
         def do_GET(self):
             if urlparse(self.path).path == "/healthz":
                 self._json(200, {"ok": True, **engine.stats,
-                                 "sessions": len(engine.sessions)})
+                                 "sessions": len(engine.sessions),
+                                 "spans": tracing.summary("serve.")})
             else:
                 self._json(404, {"error": "unknown path"})
 
@@ -261,32 +297,38 @@ def make_handler(engine, size):
             u = urlparse(self.path)
             q = parse_qs(u.query)
             session = q.get("session", ["default"])[0]
-            body = self.rfile.read(int(self.headers.get("Content-Length", 0)))
+            with tracing.span("serve.request", trace_id=next(engine.request_ids)):
+                self._answer(u.path, session,
+                             self.rfile.read(int(self.headers.get("Content-Length", 0))))
+
+        def _answer(self, path, session, body):
             try:
-                img = _decode_image(body, size)
+                with tracing.span("serve.decode"):
+                    img = _decode_image(body, size)
             except Exception as e:
                 self._json(400, {"error": str(e)})
                 return
             try:
-                if u.path == "/source":
+                if path == "/source":
                     engine.set_source(session, img)
                     self._json(200, {"ok": True, "session": session})
-                elif u.path == "/drive":
+                elif path == "/drive":
                     if not engine.has_session(session):
                         self._json(409, {"error": f"no source for session "
                                                   f"{session!r}; POST /source first"})
                         return
-                    out = engine.drive(session, img)
-                    self._send(200, (np.clip(out, 0, 1) * 255)
-                               .astype(np.uint8).tobytes())
-                elif u.path == "/frontalize":
-                    out = np.asarray(engine.frontalize(img))
-                    self._send(200, (np.clip(out, 0, 1) * 255)
-                               .astype(np.uint8).tobytes())
+                    self._frame(engine.drive(session, img))
+                elif path == "/frontalize":
+                    self._frame(np.asarray(engine.frontalize(img)))
                 else:
                     self._json(404, {"error": "unknown path"})
             except Exception as e:
                 self._json(500, {"error": repr(e)})
+
+        def _frame(self, out):
+            with tracing.span("serve.encode"):
+                body = (np.clip(out, 0, 1) * 255).astype(np.uint8).tobytes()
+            self._send(200, body)
 
     return Handler
 

@@ -227,23 +227,38 @@ def _start_profiler(device):
         activities.append(torch.profiler.ProfilerActivity.CUDA)
     prof = torch.profiler.profile(activities=activities)
     prof.start()
-    return prof, device, time.perf_counter()
+    return prof, device, time.time_ns()
+
+
+def _union_ns(intervals, lo: int, hi: int) -> int:
+    """The length of the union of ``intervals`` clipped to [lo, hi]."""
+    total, end = 0, lo
+    for a, b in sorted(intervals):
+        a, b = max(a, end), min(b, hi)
+        if b > a:
+            total += b - a
+            end = b
+    return total
 
 
 def _stop_profiler(profiler, profile_dir):
-    """Stop the trace once the card has run the traced steps; write it and
-    print the card's busy share of the window (kernel time over wall time)."""
+    """Stop the trace once the card has run the traced steps; write it (the
+    program's spans in it as record_function ranges, tracing.py) and print
+    the card's busy share of the window: the union of its operations'
+    intervals over the wall time, overlapping kernels counted once."""
     prof, device, t0 = profiler
     if device.type == "cuda":
         torch.cuda.synchronize(device)
-    wall_ms = (time.perf_counter() - t0) * 1e3
+    t1 = time.time_ns()
     prof.stop()
     os.makedirs(profile_dir, exist_ok=True)
     path = os.path.join(profile_dir, "trace.json")
     prof.export_chrome_trace(path)
-    busy_ms = sum(e.self_device_time_total for e in prof.key_averages()
-                  if e.device_type != torch.autograd.DeviceType.CPU) / 1e3
-    master_only_print(f"profiler trace written to {path}; the device ran kernels "
+    busy_ms = _union_ns([(e.start_ns(), e.end_ns()) for e in prof.profiler.kineto_results.events()
+                         if e.device_type() != torch.autograd.DeviceType.CPU
+                         and not e.is_user_annotation()], t0, t1) / 1e6
+    wall_ms = (t1 - t0) / 1e6
+    master_only_print(f"profiler trace written to {path}; the device was busy "
                       f"{busy_ms:.1f} ms of the window's {wall_ms:.1f} ms "
                       f"({busy_ms / wall_ms:.1%})")
 

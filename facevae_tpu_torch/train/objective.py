@@ -28,6 +28,10 @@ BatchNorm statistics or spectral u, v, and the driving EFE call's eps is
 drawn once, in the forward, from the step's generator.  A remat step
 computes the same values as a step without it.
 
+Each net's call is a ``net.<name>`` span (facevae_tpu_torch/tracing.py;
+``net.tps`` the TPS draw and warp of the driving frame), and a remat
+region takes the net's name (``remat.recompute.<name>``).
+
 `nets` maps the JAX package's names to modules: efe, afe, ckd, hpe_ede, mfe,
 generator, discriminator, hopenet, perceptual, contrastive.  Images are
 [N,H,W,3] in [0,1], channel-last.
@@ -38,7 +42,7 @@ from typing import Dict, Optional, Tuple
 
 import torch
 
-from facevae_tpu_torch import remat
+from facevae_tpu_torch import remat, tracing
 from facevae_tpu_torch.config import Config
 from facevae_tpu_torch.losses import (
     deformation_prior_loss, equivariance_loss, feature_matching_loss, gan_loss_dis,
@@ -57,6 +61,13 @@ _COMPUTE_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
 def _chunk3(x):
     return x.chunk(3, dim=0)
+
+
+def _net(name: str, rm: bool, fn, *args, **kwargs):
+    """fn(*args, **kwargs), rematerialized with ``rm``, in a ``net.<name>``
+    span."""
+    with tracing.span("net." + name):
+        return remat.call(rm, fn, *args, name=name, **kwargs)
 
 
 def compute_dtype(cfg: Config) -> torch.dtype:
@@ -86,19 +97,20 @@ def generator_forward(nets, cfg: Config, s, d, s_a, d_a,
     s_a = s_a.to(cdt) if s_a is not None else None
     d_a = d_a.to(cdt) if d_a is not None else None
     rm = cfg.model.remat
-    fs = nets["afe"](s_c)
-    kp_c = remat.call(rm, nets["ckd"], s_c)
+    fs = _net("afe", False, nets["afe"], s_c)
+    kp_c = _net("ckd", rm, nets["ckd"], s_c)
 
-    tp = transform_params
-    if tp is None:
-        t = cfg.train
-        tp = random_transform_params(generator, N, sigma_affine=t.sigma_affine,
-                                     sigma_tps=t.sigma_tps, points_tps=t.points_tps,
-                                     device=s.device)
-    transformed_d = transform_frame(tp, d.float(), compute_dtype=cdt).float()
+    with tracing.span("net.tps"):
+        tp = transform_params
+        if tp is None:
+            t = cfg.train
+            tp = random_transform_params(generator, N, sigma_affine=t.sigma_affine,
+                                         sigma_tps=t.sigma_tps, points_tps=t.points_tps,
+                                         device=s.device)
+        transformed_d = transform_frame(tp, d.float(), compute_dtype=cdt).float()
     cated = torch.cat([s_c, d_c, transformed_d.to(cdt)], dim=0)
 
-    yaw, pitch, roll, t, scale = remat.call(rm, nets["hpe_ede"], cated)
+    yaw, pitch, roll, t, scale = _net("hpe_ede", rm, nets["hpe_ede"], cated)
     t_s, t_d, t_tran = _chunk3(t)
     scale_s, scale_d, scale_tran = _chunk3(scale)
     yaw_s, yaw_d, yaw_tran = _chunk3(yaw)
@@ -106,7 +118,7 @@ def generator_forward(nets, cfg: Config, s, d, s_a, d_a,
     roll_s, roll_d, roll_tran = _chunk3(roll)
 
     # the frozen pose teacher on the nearest-resized 224x224 input
-    with torch.no_grad():
+    with torch.no_grad(), tracing.span("net.hopenet"):
         hp_in = interpolate_nearest_2d(
             apply_imagenet_normalization(cated).permute(0, 3, 1, 2), (224, 224))
         real_yaw, real_pitch, real_roll = nets["hopenet"](hp_in.permute(0, 2, 3, 1))
@@ -117,20 +129,22 @@ def generator_forward(nets, cfg: Config, s, d, s_a, d_a,
                                          t_tran, scale_tran)
 
     efe = nets["efe"]
-    kp_s, _, _, _, _ = remat.call(rm, efe, s_c, s_a, kp_s_old)
-    kp_d, x_c_d, x_a_c_d, (mu_d, logstd_d), (x_vae_d, _) = remat.call(
-        rm, efe, d_c, d_a, kp_d_old, train_vae=train_vae, eps=vae_eps, generator=generator)
-    transformed_kp = remat.call(rm, efe, transformed_d.to(cdt), None, transformed_kp_old)[0]
+    kp_s, _, _, _, _ = _net("efe", rm, efe, s_c, s_a, kp_s_old)
+    kp_d, x_c_d, x_a_c_d, (mu_d, logstd_d), (x_vae_d, _) = _net(
+        "efe", rm, efe, d_c, d_a, kp_d_old, train_vae=train_vae, eps=vae_eps,
+        generator=generator)
+    transformed_kp = _net("efe", rm, efe, transformed_d.to(cdt), None, transformed_kp_old)[0]
 
     reverse_kp = warp_coordinates(tp, transformed_kp[:, :, :2])
-    deformation, occlusion, mask = remat.call(rm, nets["mfe"], fs, kp_s, kp_d, Rs, Rd)
-    generated_d = remat.call(rm, nets["generator"], fs, deformation, occlusion).float()
-    output_d, features_d = remat.call(rm, nets["discriminator"], d_c, kp_d)
-    output_gd, features_gd = remat.call(rm, nets["discriminator"], generated_d.to(cdt), kp_d)
+    deformation, occlusion, mask = _net("mfe", rm, nets["mfe"], fs, kp_s, kp_d, Rs, Rd)
+    generated_d = _net("generator", rm, nets["generator"], fs, deformation, occlusion).float()
+    output_d, features_d = _net("discriminator", rm, nets["discriminator"], d_c, kp_d)
+    output_gd, features_gd = _net("discriminator", rm, nets["discriminator"],
+                                  generated_d.to(cdt), kp_d)
 
     zero = torch.zeros((), dtype=torch.float32, device=s.device)
     losses = {
-        "P": w.perceptual * remat.call(rm, nets["perceptual"], generated_d.to(cdt), d_c),
+        "P": w.perceptual * _net("perceptual", rm, nets["perceptual"], generated_d.to(cdt), d_c),
         "G": w.gan * gan_loss_gen(output_gd),
         "F": w.feature_matching * feature_matching_loss(features_gd, features_d),
         "E": w.equivariance * equivariance_loss(kp_d, reverse_kp),
@@ -138,7 +152,7 @@ def generator_forward(nets, cfg: Config, s, d, s_a, d_a,
         "H": w.headpose * headpose_loss(yaw, pitch, roll, real_yaw, real_pitch, real_roll),
         # quirk q11: the D prior penalizes EFE's deviation from pose-only kp
         "D": w.deformation_prior * deformation_prior_loss(kp_d_old - kp_d),
-        "C": (w.contrastive * nets["contrastive"](x_c_d, x_a_c_d)
+        "C": (w.contrastive * _net("contrastive", False, nets["contrastive"], x_c_d, x_a_c_d)
               if x_c_d is not None else zero),
         "K": (w.kl * kl_divergence_loss(mu_d, logstd_d)
               if train_vae and mu_d is not None else zero),
@@ -159,8 +173,8 @@ def generator_forward(nets, cfg: Config, s, d, s_a, d_a,
 def discriminator_forward(nets, cfg: Config, d, generated_d, kp_d) -> Dict[str, torch.Tensor]:
     """The discriminator's hinge losses on real d and the detached fake."""
     cdt, rm = compute_dtype(cfg), cfg.model.remat
-    output_d, _ = remat.call(rm, nets["discriminator"], d.to(cdt), kp_d.detach())
-    output_gd, _ = remat.call(rm, nets["discriminator"], generated_d.detach().to(cdt),
-                              kp_d.detach())
+    output_d, _ = _net("discriminator", rm, nets["discriminator"], d.to(cdt), kp_d.detach())
+    output_gd, _ = _net("discriminator", rm, nets["discriminator"],
+                        generated_d.detach().to(cdt), kp_d.detach())
     return {"G1": cfg.loss.gan * gan_loss_dis(output_gd, t_real=False),
             "G2": cfg.loss.gan * gan_loss_dis(output_d, t_real=True)}

@@ -20,6 +20,11 @@ DDP's buffer broadcast would overwrite every rank's BatchNorm statistics
 and spectral u, v from rank 0 on each forward, which the JAX step never
 does.  Nothing here reads a tensor on the host, so a CUDA graph can hold
 the step, collectives included (train/scan.py).
+
+The step is a ``train.step`` span (facevae_tpu_torch/tracing.py; the step
+number its trace id) over ``train.aug``, ``train.g_forward``,
+``train.g_backward``, ``train.g_adam``, ``train.d_forward``,
+``train.d_backward`` and ``train.d_adam``.
 """
 from __future__ import annotations
 
@@ -29,7 +34,7 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
-from facevae_tpu_torch import numerics
+from facevae_tpu_torch import numerics, tracing
 from facevae_tpu_torch.data.device_aug import augment_batch
 from facevae_tpu_torch.models import D_MODEL_NAMES
 from facevae_tpu_torch.ops.tps import TransformParams
@@ -89,40 +94,54 @@ def train_step(state: TrainState, batch, transform_params: Optional[TransformPar
     ``vae_eps``, else drawn from ``generator`` after the TPS parameters)
     and K is the KL term."""
     numerics.apply()
+    with tracing.span("train.step", trace_id=state.step):
+        losses_g, losses_d, aux = _phases(state, batch, transform_params, generator, vae_eps,
+                                          fused_aug)
+    detach = lambda tree: {k: v.detach() for k, v in tree.items()}  # noqa: E731
+    return {"losses_g": detach(losses_g), "losses_d": detach(losses_d),
+            "aux": detach(aux)}
+
+
+def _phases(state: TrainState, batch, transform_params, generator, vae_eps, fused_aug):
+    """The step's body: (losses_g, losses_d, aux)."""
     if fused_aug:
         s, d = batch
-        if s.dtype == torch.uint8:
-            s, d = s.float() / 255.0, d.float() / 255.0
-        with torch.no_grad():
-            s_a = augment_batch(generator, s, state.cfg.data)
-            d_a = augment_batch(generator, d, state.cfg.data)
+        with tracing.span("train.aug"):
+            if s.dtype == torch.uint8:
+                s, d = s.float() / 255.0, d.float() / 255.0
+            with torch.no_grad():
+                s_a = augment_batch(generator, s, state.cfg.data)
+                d_a = augment_batch(generator, d, state.cfg.data)
     else:
         s, d, s_a, d_a = batch
 
     _set_requires_grad(state, D_MODEL_NAMES, False)
     state.g_opt.zero_grad(set_to_none=True)
-    losses_g, aux = generator_forward(state.nets, state.cfg, s, d, s_a, d_a,
-                                      transform_params=transform_params,
-                                      generator=generator, train_vae=state.cfg.train.train_vae,
-                                      vae_eps=vae_eps)
-    sum(losses_g.values()).backward()
-    if state.group is not None:
-        all_reduce_grads(state.g_opt, state.group)
-    state.g_opt.step()
+    with tracing.span("train.g_forward"):
+        losses_g, aux = generator_forward(state.nets, state.cfg, s, d, s_a, d_a,
+                                          transform_params=transform_params,
+                                          generator=generator,
+                                          train_vae=state.cfg.train.train_vae, vae_eps=vae_eps)
+    with tracing.span("train.g_backward"):
+        sum(losses_g.values()).backward()
+        if state.group is not None:
+            all_reduce_grads(state.g_opt, state.group)
+    with tracing.span("train.g_adam"):
+        state.g_opt.step()
 
     _set_requires_grad(state, D_MODEL_NAMES, True)
     state.d_opt.zero_grad(set_to_none=True)
-    losses_d = discriminator_forward(state.nets, state.cfg, d, aux["generated_d"].detach(),
-                                     aux["kp_d"].detach())
-    sum(losses_d.values()).backward()
-    if state.group is not None:
-        all_reduce_grads(state.d_opt, state.group)
-    state.d_opt.step()
+    with tracing.span("train.d_forward"):
+        losses_d = discriminator_forward(state.nets, state.cfg, d, aux["generated_d"].detach(),
+                                         aux["kp_d"].detach())
+    with tracing.span("train.d_backward"):
+        sum(losses_d.values()).backward()
+        if state.group is not None:
+            all_reduce_grads(state.d_opt, state.group)
+    with tracing.span("train.d_adam"):
+        state.d_opt.step()
     state.step += 1
     if state.group is not None:
         mean = _mean_losses({**losses_g, **losses_d}, state.group)
         losses_g, losses_d = ({k: mean[k] for k in losses_g}, {k: mean[k] for k in losses_d})
-
-    detach = lambda tree: {k: v.detach() for k, v in tree.items()}  # noqa: E731
-    return {"losses_g": detach(losses_g), "losses_d": detach(losses_d),
-            "aux": detach(aux)}
+    return losses_g, losses_d, aux
