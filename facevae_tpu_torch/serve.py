@@ -1,12 +1,13 @@
 """Persistent batched inference server for the port (counterpart of the
 root serve.py): ``python -m facevae_tpu_torch.serve --device cuda``.
 
-Same endpoints, flags and batching as the JAX server, around the port's
-InferencePipeline.  The request collector, the HTTP handler and the image
-decoding are the port's own copies of the JAX server's (serve.py), with the
-same behaviour, including how it waits before a second full batch of one
-drain: max(0, min(window, 100 ms) - the first flush's time), nothing at
-the default 10 ms window, which a full-width flush (~170 ms) outlasts:
+Same endpoints and flags as the JAX server, around the port's
+InferencePipeline.  The HTTP handler and the image decoding are the port's
+own copies of the JAX server's (serve.py); the request collector batches
+as the JAX server's does, but keeps up to two batches in flight: it
+assembles and dispatches the next full batch while the card runs the last
+one, and a completer thread answers each batch once its frames are back
+(BatchedEngine):
 
   GET  /healthz                  -> {"ok": true, "batches": N, ..., "spans": {...}}
   POST /source?session=<id>      -> register/replace the session's source
@@ -15,8 +16,11 @@ the default 10 ms window, which a full-width flush (~170 ms) outlasts:
 
 Payloads are raw RGB bytes (H*W*3 uint8) or PNG (decoded by the port's own
 reader, data/image_io.read_png); responses are raw RGB bytes.
-Requests are collected into batches of --max_batch (padded), flushed when
-full or when the oldest has waited --batch_window_ms.  The six G nets come
+Requests are collected into batches of --max_batch (padded).  A batch goes
+when it is full and at most one other is in flight, or when its oldest
+request has waited --batch_window_ms and no other is; the kinds go in the
+order their oldest requests came, so neither overtakes the other once it is
+due.  The six G nets come
 from the epoch file --ckp_dir/%08d-checkpoint.msgpack of epoch --ckp,
 written by either package's save_checkpoint (train/checkpoint.py), or with
 --random_init true from a seed.  --bf16 true is taken, as the JAX server
@@ -33,11 +37,15 @@ request's id as their trace id: in the handler's thread ``serve.request``
 (body read to answer written) over ``serve.decode``, ``serve.wait`` (blocked
 in the engine) and ``serve.encode``; in the collector ``serve.queue`` (enqueue
 to the start of the flush that took the request; ``link``: the batch) and
-``serve.flush`` (the batch number as its trace id) over ``serve.assemble``
-(stacking, the copy to the device, the sessions' concatenation),
-``serve.graph`` (the host's time in the graph, with a ``net.<name>`` span a
-net) and ``serve.readback``.  /healthz's ``"spans"`` gives, for each
-``serve.*`` name, the count over the ring and the p50 and p95 in ms:
+``serve.flush`` (the batch number as its trace id; from the start of the
+assembly to the answers, so it covers the wait behind the batch before it)
+over ``serve.assemble`` (stacking into pinned memory, the copy to the
+device, the sessions' concatenation), ``serve.graph`` (the host's time in
+the graph, with a ``net.<name>`` span a net) and, from the completer,
+``serve.readback`` (the wait for the frames' copy).  /healthz gives
+``"overlapped"``, the batches dispatched while another was in flight, and
+``"spans"``: for each ``serve.*`` name, the count over the ring and the p50
+and p95 in ms:
 
     {"serve.flush": {"count": 812, "p50_ms": 199.1, "p95_ms": 214.7}, ...}
 """
@@ -98,11 +106,21 @@ def parse_args(argv=None):
 
 class BatchedEngine:
     """Collects requests per kind (drive / front) and runs each kind as one
-    batch padded to max_batch: flushed when full or when its oldest request
-    has waited window_ms.  Errors fan out to every request of the batch.
-    Session encodings stay on the device at batch 1."""
+    batch padded to max_batch, with at most DEPTH (2) batches of either kind
+    dispatched and not yet answered: they share one card.  A kind's batch
+    goes when it is full and at most one batch is in flight, or when its
+    oldest request has waited window_ms and none is; due kinds go oldest
+    first, and one held back holds back the other.  The collector thread
+    assembles a batch, dispatches its graph and enqueues the copy of its
+    frames to the host; the completer thread waits for the oldest batch's
+    copy and hands out its answers.  So the next full batch is assembled and
+    dispatched while the card runs the last one, and a partial batch only
+    ever meets an idle card.  An error fans out to every request of the
+    batch it hit; the engine serves on.  Session encodings stay on the
+    device at batch 1."""
 
     FLUSH_MS_KEPT = 4096
+    DEPTH = 2        # the least that keeps the card fed; a deeper queue only adds waiting
 
     def __init__(self, pipe: InferencePipeline, device, max_batch, window_ms):
         self.pipe = pipe
@@ -111,25 +129,45 @@ class BatchedEngine:
         self.window_s = window_ms / 1e3
         self.sessions = {}            # session id -> (fs, kp_c, kp_s, Rs), batch 1
         self.lock = threading.Lock()
+        # requests, and a None from the completer each time it answers a batch
         self.requests: "queue.Queue" = queue.Queue()
         self.stats = {"batches": 0, "frames": 0, "padded": 0}
+        self.overlapped = 0           # batches dispatched while another was in flight
         # host time of each of the last FLUSH_MS_KEPT batches, images in -> frames out
         # (the serve.flush span's own clock reads)
         self.flush_ms = collections.deque(maxlen=self.FLUSH_MS_KEPT)
         self.request_ids = itertools.count(1)      # the trace ids of requests
         self._batch_ids = itertools.count(1)       # and of batches
         self._stop = False
+        self._cuda = self.device.type == "cuda"
+        # the batches in flight, oldest first; unfinished_tasks counts them
+        self._dispatched: "queue.Queue" = queue.Queue()
         size = pipe.cfg.model.image_size
-        self._zero = np.zeros((1, size, size, 3), np.float32)
+        self._frame_shape = (size, size, 3)
         self.collector = threading.Thread(target=self._run, daemon=True)
+        self.completer = threading.Thread(target=self._complete, daemon=True)
         self.collector.start()
+        self.completer.start()
 
-    def _tensor(self, imgs):
-        return torch.from_numpy(np.ascontiguousarray(imgs, np.float32)).to(self.device)
+    def _stage(self, imgs):
+        """The frames ``imgs`` as one [max_batch,H,W,3] float32 batch on the
+        device, zero past len(imgs).  On a card they are written into pinned
+        memory and copied without blocking: a copy from pageable memory
+        would first wait for everything queued on the stream."""
+        host = torch.empty((self.max_batch, *self._frame_shape), dtype=torch.float32,
+                           pin_memory=self._cuda)
+        a = host.numpy()
+        for i, img in enumerate(imgs):
+            a[i] = img
+        a[len(imgs):] = 0
+        return host.to(self.device, non_blocking=True)
 
     # -- session management ------------------------------------------------
     def set_source(self, session, img):
-        enc = self.pipe.encode_source(self._tensor(np.asarray(img)[None]))
+        # a pageable copy of the frame's own layout (a zero stride on the
+        # batch): the encodings keep the bits they have always had
+        src = torch.from_numpy(np.ascontiguousarray(np.asarray(img)[None], np.float32))
+        enc = self.pipe.encode_source(src.to(self.device))
         with self.lock:
             self.sessions[session] = enc
 
@@ -166,92 +204,155 @@ class BatchedEngine:
 
     def warmup(self):
         """Run each batched graph once before serving traffic."""
-        self.set_source("_warm", self._zero[0])
-        self.drive("_warm", self._zero[0], timeout=3600.0)
-        self.frontalize(self._zero[0], timeout=3600.0)
+        zero = np.zeros(self._frame_shape, np.float32)
+        self.set_source("_warm", zero)
+        self.drive("_warm", zero, timeout=3600.0)
+        self.frontalize(zero, timeout=3600.0)
         with self.lock:
             self.sessions.pop("_warm", None)
         self.stats.update(batches=0, frames=0, padded=0)
+        self.overlapped = 0
 
     # -- collector ---------------------------------------------------------
     def _run(self):
-        # Per-kind pending lists; a kind flushes when it reaches max_batch or
-        # its oldest request has waited window_s; fuller kinds flush first.
-        # Like the JAX collector, when a drain holds more than one batch of a
-        # kind it resets that kind's deadline to now + window_s before the
-        # flush, so the next full batch waits max(0, min(window_s, 0.1) -
-        # the flush's time) for the queue's timeout.
+        # Per-kind pending lists; a kind is due when it reaches max_batch or
+        # its oldest request has waited window_s, and goes as the in-flight
+        # rule lets it (_dispatch_due).  Like the JAX collector, when a drain
+        # holds more than one batch of a kind it resets that kind's deadline
+        # to now + window_s as the first goes.
         pending = {}              # kind -> [requests]
         deadlines = {}            # kind -> monotonic deadline of oldest request
         while not self._stop:
-            timeout = 0.1
-            if deadlines:
-                timeout = min(0.1, max(0.0, min(deadlines.values())
-                                       - time.monotonic()))
+            self._dispatch_due(pending, deadlines)
+            # wait for a request, an answered batch or the next deadline; a
+            # kind due but held back waits for an answered batch
+            now = time.monotonic()
+            timeout = min([0.1] + [d - now for k, d in deadlines.items()
+                                   if d > now and len(pending[k]) < self.max_batch])
             try:
                 req = self.requests.get(timeout=timeout)
             except queue.Empty:
-                req = None
-            while req is not None:   # drain everything already queued
-                pending.setdefault(req[0], []).append(req)
-                deadlines.setdefault(req[0], time.monotonic() + self.window_s)
+                continue
+            while True:              # drain everything already queued
+                if req is not None:
+                    pending.setdefault(req[0], []).append(req)
+                    deadlines.setdefault(req[0], time.monotonic() + self.window_s)
                 try:
                     req = self.requests.get_nowait()
                 except queue.Empty:
-                    req = None
-            now = time.monotonic()
-            ready = [k for k, b in pending.items()
-                     if len(b) >= self.max_batch or now >= deadlines[k]]
-            for kind in sorted(ready, key=lambda k: -len(pending[k])):
-                batch = pending[kind][:self.max_batch]
-                rest = pending[kind][self.max_batch:]
-                if rest:
-                    pending[kind] = rest
-                    deadlines[kind] = time.monotonic() + self.window_s
-                else:
-                    del pending[kind], deadlines[kind]
-                try:
-                    self._flush(kind, batch)
-                except Exception as e:                # fan the error out
-                    for _, _, _, slot, done in batch:
-                        slot["error"] = repr(e)
-                        done.set()
+                    break
+        self._dispatched.put(None)   # every batch dispatched is answered first
 
-    def _flush(self, kind, batch):
+    def _dispatch_due(self, pending, deadlines):
+        # Due kinds go oldest deadline first, one batch at a time, until the
+        # oldest may not go: a full batch may go behind one in flight, one due
+        # only by its window goes to an idle card.  So a full batch of one
+        # kind never overtakes a due partial batch of the other.
+        while True:
+            now = time.monotonic()
+            due = [k for k, b in pending.items()
+                   if len(b) >= self.max_batch or now >= deadlines[k]]
+            if not due:
+                return
+            kind = min(due, key=deadlines.get)
+            in_flight = self._dispatched.unfinished_tasks   # only this thread raises it
+            full = len(pending[kind]) >= self.max_batch
+            if in_flight >= (self.DEPTH if full else 1):
+                return
+            batch = pending[kind][:self.max_batch]
+            rest = pending[kind][self.max_batch:]
+            if rest:
+                pending[kind] = rest
+                deadlines[kind] = time.monotonic() + self.window_s
+            else:
+                del pending[kind], deadlines[kind]
+            self._dispatch(kind, batch, behind=in_flight > 0)
+
+    def _dispatch(self, kind, batch, behind):
+        """Assemble the batch, dispatch its graph and enqueue its frames'
+        copy to the host, then hand it to the completer."""
         n = len(batch)
         pad = self.max_batch - n
-        with tracing.span("serve.flush", trace_id=next(self._batch_ids)) as flush:
-            with tracing.span("serve.assemble"):
-                imgs = self._tensor(np.concatenate(
-                    [np.asarray(img, np.float32)[None] for _, _, img, _, _ in batch]
-                    + [self._zero] * pad, axis=0))
-                if kind == "drive":
-                    with self.lock:
-                        encs = [self.sessions[s] for _, s, _, _, _ in batch]
-                    fs, kp_c, kp_s, Rs = (torch.cat([e[i] for e in encs] + [encs[-1][i]] * pad)
-                                          for i in range(4))
-            with tracing.span("serve.graph"):
-                if kind == "drive":
-                    out = self.pipe.drive_frame(fs, kp_c, kp_s, Rs, imgs)
-                else:
-                    out = self.pipe.frontalize_frame(imgs)
-            with tracing.span("serve.readback"):
-                out = out.cpu().numpy()
-        self.flush_ms.append((flush.end_ns - flush.start_ns) / 1e6)
+        flush = tracing.span("serve.flush", trace_id=next(self._batch_ids), held=True)
+        try:
+            with flush:
+                with tracing.span("serve.assemble"):
+                    imgs = self._stage([img for _, _, img, _, _ in batch])
+                    if kind == "drive":
+                        with self.lock:
+                            encs = [self.sessions[s] for _, s, _, _, _ in batch]
+                        fs, kp_c, kp_s, Rs = (torch.cat([e[i] for e in encs]
+                                                        + [encs[-1][i]] * pad)
+                                              for i in range(4))
+                with tracing.span("serve.graph"):
+                    if kind == "drive":
+                        out = self.pipe.drive_frame(fs, kp_c, kp_s, Rs, imgs)
+                    else:
+                        out = self.pipe.frontalize_frame(imgs)
+                # the copy goes on the stream now, ahead of the next batch's
+                # work; each batch's host tensor is its own, kept alive by
+                # the answers' views
+                copied = None
+                if self._cuda:
+                    host = torch.empty(out.shape, dtype=out.dtype, pin_memory=True)
+                    host.copy_(out, non_blocking=True)
+                    copied = torch.cuda.Event()
+                    copied.record()
+                    out = host
+        except Exception as e:                        # fan the error out
+            flush.finish()
+            self._answer(batch, error=e)
+            return
         for _, _, _, slot, _ in batch:
             if "enqueued_ns" in slot:
                 tracing.record("serve.queue", slot["enqueued_ns"], flush.start_ns,
                                trace_id=slot["trace_id"], parent=slot["parent"],
                                link=flush.trace_id)
-        self.stats["batches"] += 1
-        self.stats["frames"] += n
-        self.stats["padded"] += pad
+        self.overlapped += behind
+        self._dispatched.put((batch, flush, out, copied))
+
+    # -- completer ---------------------------------------------------------
+    def _complete(self):
+        # The batches in the order of their dispatch: wait for the frames'
+        # copy (Event.synchronize lets go of the interpreter lock; on the CPU
+        # the readback is the plain copy), then answer, and wake the collector.
+        while True:
+            item = self._dispatched.get()
+            if item is None:
+                return
+            batch, flush, out, copied = item
+            try:
+                start_ns = time.time_ns()
+                if copied is not None:
+                    copied.synchronize()
+                out = out.cpu().numpy()
+                tracing.record("serve.readback", start_ns, time.time_ns(),
+                               trace_id=flush.trace_id, parent=flush.id)
+            except Exception as e:                    # fan the error out
+                flush.finish()
+                self._answer(batch, error=e)
+            else:
+                flush.finish()
+                self.flush_ms.append((flush.end_ns - flush.start_ns) / 1e6)
+                self.stats["batches"] += 1
+                self.stats["frames"] += len(batch)
+                self.stats["padded"] += self.max_batch - len(batch)
+                self._answer(batch, out=out)
+            self._dispatched.task_done()
+            self.requests.put(None)
+
+    @staticmethod
+    def _answer(batch, out=None, error=None):
         for i, (_, _, _, slot, done) in enumerate(batch):
-            slot["out"] = out[i]
+            if error is not None:
+                slot["error"] = repr(error)
+            else:
+                slot["out"] = out[i]
             done.set()
 
     def stop(self):
         self._stop = True
+        self.requests.put(None)      # wakes the collector, which stops the completer
 
 
 def _decode_image(body, size):
@@ -288,6 +389,7 @@ def make_handler(engine, size):
         def do_GET(self):
             if urlparse(self.path).path == "/healthz":
                 self._json(200, {"ok": True, **engine.stats,
+                                 "overlapped": engine.overlapped,
                                  "sessions": len(engine.sessions),
                                  "spans": tracing.summary("serve.")})
             else:

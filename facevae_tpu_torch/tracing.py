@@ -23,10 +23,17 @@ a profiler a span costs two clock reads and an append.
 A span never touches the device (no sync, no launch, no tensor read), so a
 CUDA graph capture holds it (train/scan.py); a graph's replays record none.
 
+A ``held`` span is opened by a block but ended by ``finish()``, which may
+run on another thread: its children nest under it inside the block as
+under any span, and others name it as their ``parent`` in ``record``
+(a drive batch dispatched by the collector and answered by the completer,
+serve.py).  It keeps the thread that opened it.
+
 The names, and what reads them (PERF.md §3):
   serve.request > serve.decode, serve.wait, serve.encode   handler thread
   serve.queue     enqueue to the start of the flush that took the request
-  serve.flush > serve.assemble, serve.graph > net.*, serve.readback
+  serve.flush > serve.assemble, serve.graph > net.*   collector thread (held)
+              > serve.readback                        completer thread
   train.step > train.aug, train.g_forward > net.*, train.g_backward,
       train.g_adam, train.d_forward > net.*, train.d_backward, train.d_adam
   remat.recompute.<net>   a region's replay in the backward (remat.py)
@@ -89,14 +96,17 @@ def _stack() -> list:
 
 
 class span:
-    """``with span(name, trace_id=None, link=None) as s:`` records one span
-    of the block (see the module's docstring); ``s.id``, ``s.trace_id`` and
-    ``s.start_ns`` are set on entry, ``s.end_ns`` on exit."""
+    """``with span(name, trace_id=None, link=None, held=False) as s:``
+    records one span of the block (see the module's docstring); ``s.id``,
+    ``s.trace_id`` and ``s.start_ns`` are set on entry, ``s.end_ns`` on exit,
+    or with ``held`` on ``s.finish()``."""
 
-    __slots__ = ("name", "trace_id", "link", "id", "parent", "start_ns", "end_ns", "_rf")
+    __slots__ = ("name", "trace_id", "link", "held", "id", "parent", "thread", "start_ns",
+                 "end_ns", "_rf")
 
-    def __init__(self, name: str, trace_id: Optional[int] = None, link: Optional[int] = None):
-        self.name, self.trace_id, self.link = name, trace_id, link
+    def __init__(self, name: str, trace_id: Optional[int] = None, link: Optional[int] = None,
+                 held: bool = False):
+        self.name, self.trace_id, self.link, self.held = name, trace_id, link, held
 
     def __enter__(self) -> "span":
         stack = _stack()
@@ -105,6 +115,7 @@ class span:
         if self.trace_id is None and outer is not None:
             self.trace_id = outer.trace_id
         self.id = next(_ids)
+        self.thread = _local.thread
         stack.append(self)
         self._rf = None
         if _profiling():
@@ -114,7 +125,7 @@ class span:
         return self
 
     def __exit__(self, *exc) -> bool:
-        self.end_ns = time.time_ns()
+        end_ns = time.time_ns()
         if self._rf is not None:
             self._rf.__exit__(*exc)
             self._rf = None
@@ -123,9 +134,19 @@ class span:
             stack.pop()
         else:
             stack.remove(self)
-        RING.add(Span(self.name, self.start_ns, self.end_ns, self.id, self.parent,
-                      self.trace_id, self.link, _local.thread))
+        if not self.held:
+            self.end_ns = end_ns
+            self._add()
         return False
+
+    def finish(self) -> None:
+        """End a ``held`` span now and record it, from any thread."""
+        self.end_ns = time.time_ns()
+        self._add()
+
+    def _add(self) -> None:
+        RING.add(Span(self.name, self.start_ns, self.end_ns, self.id, self.parent,
+                      self.trace_id, self.link, self.thread))
 
 
 def current() -> Optional[span]:

@@ -343,9 +343,7 @@ def test_flush_times_are_bounded(monkeypatch):
     try:
         assert isinstance(engine.flush_ms, collections.deque)
         for _ in range(7):
-            slot, done = {}, types.SimpleNamespace(set=lambda: None)
-            engine._flush("front", [("front", None, np.zeros((4, 4, 3), np.float32), slot, done)])
-            assert slot["out"].shape == (4, 4, 3)
+            assert engine.frontalize(np.zeros((4, 4, 3), np.float32), timeout=30).shape == (4, 4, 3)
         assert len(engine.flush_ms) == 4 and engine.stats["batches"] == 7
         engine.flush_ms.clear()
         assert len(engine.flush_ms) == 0

@@ -8,7 +8,8 @@ profile of a remat step shows each region's recompute while the step's
 losses and gradients stay those of the step without a profiler.  The tiny
 engine's spans of one /drive request share its id, its queue span ends at
 its flush's start, flush_ms is the flush spans' durations, and /healthz
-summarizes the serve.* spans.
+summarizes the serve.* spans; two batches in flight at once keep a flush
+and three children each.
 
 This file imports no JAX; the card's test runs with
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_tracing.py -q -m cuda
@@ -31,6 +32,7 @@ from facevae_tpu_torch.serve import BatchedEngine, start_server
 from facevae_tpu_torch.train import build_all_modules, create_train_state, train_step
 from facevae_tpu_torch.train.inference import InferencePipeline
 from facevae_tpu_torch.train.loop import _union_ns
+from held_pipeline import HeldPipeline
 from torch_parity import one_torch_thread  # noqa: F401
 
 
@@ -286,6 +288,49 @@ def test_healthz_summarizes_the_serve_spans(server, ring):
     assert spans["serve.request"]["count"] == 4 and spans["serve.flush"]["count"] == 3
     for v in spans.values():
         assert 0 <= v["p50_ms"] <= v["p95_ms"]
+
+
+def test_overlapped_batches_keep_their_own_spans(ring):
+    """Two full batches, the second dispatched while the first is held in
+    flight: the flushes overlap, each has its own assemble, graph and
+    readback (the completer's), its requests' queue spans end at its start,
+    and flush_ms is the flush spans' durations."""
+    pipe = HeldPipeline()
+    engine = BatchedEngine(pipe, "cpu", max_batch=2, window_ms=60_000.0)
+
+    def ask(k):
+        return threading.Thread(target=engine.frontalize,
+                                args=(np.full((4, 4, 3), k, np.float32),), daemon=True)
+    try:
+        threads = []
+        for n in (1, 2):
+            threads += [ask(k) for k in range(2)]
+            for t in threads[-2:]:
+                t.start()
+            for _ in range(2000):
+                if len(pipe.batches) == n:
+                    break
+                threading.Event().wait(0.005)
+        assert len(pipe.batches) == 2 and engine.overlapped == 1
+        pipe.release(0)
+        pipe.release(1)
+        for t in threads:
+            t.join(30)
+            assert not t.is_alive()
+    finally:
+        engine.stop()
+    got = tracing.spans()
+    flushes = sorted((s for s in got if s.name == "serve.flush"), key=lambda s: s.start_ns)
+    assert len(flushes) == 2 and flushes[1].start_ns < flushes[0].end_ns
+    for flush in flushes:
+        children = {s.name: s for s in got if s.parent == flush.id}
+        assert set(children) == {"serve.assemble", "serve.graph", "serve.readback"}
+        for c in children.values():
+            assert flush.start_ns <= c.start_ns <= c.end_ns <= flush.end_ns
+        assert children["serve.readback"].thread != flush.thread == children["serve.graph"].thread
+        queues = [s for s in got if s.name == "serve.queue" and s.link == flush.trace_id]
+        assert len(queues) == 2 and all(q.end_ns == flush.start_ns for q in queues)
+    assert list(engine.flush_ms) == [(f.end_ns - f.start_ns) / 1e6 for f in flushes]
 
 
 # ------------------------------------------------------------------ the card
